@@ -1,5 +1,6 @@
 """Smoke run of sla_tpu_torch on one NVIDIA GPU: the port's encode/decode
-path at a real size, through the three hand-written CUDA kernels.
+path and its known-parameter path at a real size, through the seven
+hand-written CUDA kernels.
 
     python3 chip_smoke.py
 
@@ -7,14 +8,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 1. environment: the card, torch and CUDA versions, the kernels' nvcc build
    (from csrc/ in this checkout) and the native host library;
-2. kernels: K1-K3 against their plain PyTorch versions on the card, exact,
+2. kernels: K1-K7 against their plain PyTorch versions on the card, exact,
    at the main path's shape (2,048 rows x 12,288 samples, p 16, T 1, M 8)
-   and at p 32, T 3, M 8, L 16,384; kernel and plain times by CUDA events;
+   and at p 32, T 3, M 8, L 16,384; kernel and plain times by CUDA events,
+   and the fused encode (K4) against K1 + K2;
 3. slice: five minutes of seeded CD stereo (44.1 kHz, 16 bit) at preset 2
    through Encoder/Decoder(backend='device', device='cuda') — the stream
    must equal backend='host' byte for byte and decode to the exact PCM —
-   with every kernel's launch count above 0; then one minute of 96 kHz /
-   24-bit stereo at preset 4, checked the same way.
+   with K1-K3's launch counts above 0; then one minute of 96 kHz / 24-bit
+   stereo at preset 4, checked the same way;
+4. known parameters: the bench twin's cells (checked, then timed) at 256
+   and 2,048 rows, the verify twin's checks, and entry()'s forward step
+   against the plain encode chain, with all seven launch counts above 0.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and the result. Imports neither jax nor
@@ -25,7 +30,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -34,35 +38,24 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from sla_tpu_torch.tools.bench_device import card_line, cuda_ms  # noqa: E402
+
 PALLAS = "sla_tpu/kernels/pallas_filters.py"
 KERNELS = {  # wrapper name -> (Pallas function it replaces, file:line)
-    "lattice_predict": f"{PALLAS}:1700",  # lattice_filter_tl
+    "lattice_predict": f"{PALLAS}:1700",  # lattice_filter_tl(synthesize=False)
     "stage2_predict": f"{PALLAS}:839",  # fused_stage2_tl
     "synth_cascade": f"{PALLAS}:1574",  # fused_synth_tl
+    "fused_encode": f"{PALLAS}:793",  # fused_encode_tl
+    "lattice_synth": f"{PALLAS}:1700",  # lattice_filter_tl(synthesize=True)
+    "lms_synth": f"{PALLAS}:1735",  # lms_filter_tl(synthesize=True)
+    "longterm_synth": f"{PALLAS}:412",  # longterm_synth_tl
 }
+SLICE_KERNELS = ("lattice_predict", "stage2_predict", "synth_cascade")  # phase 3's path
 SOURCE = "sla_tpu_torch/csrc/filters.cu"
 
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int = 1) -> float:
-    """Mean milliseconds per call of fn() on the current stream."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # -- phase 1 -----------------------------------------------------------------
@@ -139,15 +132,27 @@ def phase_kernels() -> dict:
                                lambda: cf.stage2_predict_plain(r1, md, q15, M)),
             "synth_cascade": (lambda: cf.synth_cascade(x, coef, md, q15, M),
                               lambda: cf.synth_cascade_plain(x, coef, md, q15, M)),
+            "fused_encode": (lambda: cf.fused_encode(x, coef, md, q15, M),
+                             lambda: cf.fused_encode_plain(x, coef, md, q15, M)),
+            "lattice_synth": (lambda: cf.lattice_synth(x, coef),
+                              lambda: cf.lattice_synth_plain(x, coef)),
+            "lms_synth": (lambda: cf.lms_synth(x, M), lambda: cf.lms_synth_plain(x, M)),
+            "longterm_synth": (lambda: cf.longterm_synth(x, md, q15),
+                               lambda: cf.longterm_synth_plain(x, md, q15)),
         }
+        shape = {}
         for name, (kern, plain) in cases.items():
             err, ms, plain_ms = check_kernel(name, kern, plain, reps=5)
+            shape[name] = ms
             log("kernels", f"{name} B {B} L {L} p {p} T {T} M {M}: exact, kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.1f} ms (x{plain_ms / ms:.0f})")
             if (B, L) == (2048, 12288):  # the main path's shape: the record
                 results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
             else:
                 results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        staged = shape["lattice_predict"] + shape["stage2_predict"]
+        log("kernels", f"B {B} L {L}: fused_encode {shape['fused_encode']:.3f} ms against "
+            f"lattice_predict + stage2_predict {staged:.3f} ms")
     return results
 
 
@@ -208,7 +213,7 @@ def round_trip(st, label: str, pcm, bits: int, rate: int, preset: int, count: bo
         raise AssertionError(f"{label}: device stream differs from the host backend's")
     if out.shape != pcm.shape or not np.array_equal(out, pcm):
         raise AssertionError(f"{label}: decoded PCM differs from the input")
-    if count and not all(v > 0 for v in launches.values()):
+    if count and not all(launches[k] > 0 for k in SLICE_KERNELS):
         raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
     raw = pcm.shape[0] * pcm.shape[1] * bits // 8
     log("slice", f"{label} preset {preset}: byte-identical to host, PCM exact; encode "
@@ -234,13 +239,52 @@ def phase_slice() -> dict:
     return launches
 
 
+# -- phase 4 -----------------------------------------------------------------
+
+
+def phase_known_parameters() -> dict:
+    from sla_tpu_torch import entry, pipeline
+    from sla_tpu_torch.kernels import cuda_filters as cf
+    from sla_tpu_torch.tools import bench_device, verify_device
+
+    cf.reset_launch_counts()
+    for rows in bench_device.ROWS:
+        for name, ok in bench_device.check_cells("cuda", rows):
+            if not ok:
+                raise AssertionError(f"bench: {name} failed")
+        for r in bench_device.time_cells(rows):
+            log("bench", f"{r['cell']} B {rows} L {r['samples']}: {r['ms']:.3f} ms, "
+                f"{r['g_row_samples_per_s']:.3f} G row-samples/s")
+    t0 = time.perf_counter()
+    results = verify_device.run_checks("cuda")
+    failed = [name for name, ok in results if not ok]
+    if failed:
+        raise AssertionError(f"verify: {failed} failed")
+    log("verify", f"{len(results)} checks bit-identical in {time.perf_counter() - t0:.1f} s: "
+        + "; ".join(name for name, _ in results))
+    forward, args = entry.entry()
+    out = forward(*args)
+    torch.cuda.synchronize()
+    if out.shape != args[0].shape or out.dtype != torch.int32 or out.device.type != "cuda":
+        raise AssertionError(f"entry: forward gave {tuple(out.shape)} {out.dtype} on {out.device}")
+    ref = pipeline.encode_filters(*args, entry.PARCOR_ORDER, entry.NUM_TAPS, entry.LMS_ORDER)
+    if not torch.equal(out, ref):
+        raise AssertionError("entry: forward differs from the plain encode chain")
+    launches = dict(cf.launches)
+    log("known", f"entry forward {tuple(out.shape)} equals the plain chain; launches {launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"known-parameter path: a kernel never launched: {launches}")
+    return launches
+
+
 def main() -> int:
     card = phase_environment()
     timing = phase_kernels()
-    launches = phase_slice()
+    slice_launches = phase_slice()
+    known_launches = phase_known_parameters()
     record = [
         {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
-         "launches": launches[name], **timing[name]}
+         "launches": slice_launches[name] + known_launches[name], **timing[name]}
         for name in KERNELS
     ]
     print(json.dumps({"kernels": record}))

@@ -5,9 +5,11 @@ coding, container format, native C++ runtime) are `sla_tpu`'s own modules,
 loaded through `sla_tpu_torch.host` without importing jax. The per-sample
 filter cascade — stage 1 (pre-emphasis + PARCOR lattice predict), stage 2
 (long-term FIR + sign-sign LMS predict) and the decode synthesis cascade —
-runs as three CUDA kernels (`kernels/cuda_filters.py`) on a CUDA device and
-as their plain PyTorch versions on the CPU. Streams are byte-identical to
-`sla_tpu`'s and decoded PCM is exact.
+runs as CUDA kernels (`kernels/cuda_filters.py`) on a CUDA device and as
+their plain PyTorch versions on the CPU; so do the whole encode cascade for
+known parameters (`pipeline.encode_filters_fused`, `entry.entry()`) and the
+single stages the device tools (`tools/`) check. Streams are byte-identical
+to `sla_tpu`'s and decoded PCM is exact.
 
 This package imports torch and never jax.
 """

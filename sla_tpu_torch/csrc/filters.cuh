@@ -1,4 +1,4 @@
-// Per-row bodies of the three filter kernels (filters.cu), written once as
+// Per-row bodies of the seven filter kernels (filters.cu), written once as
 // __host__ __device__ code: nvcc builds them into the CUDA kernels, and a
 // host build (filters_host.cpp, g++ -fwrapv) runs the same bodies on the CPU
 // so the tests can hold their arithmetic against the plain PyTorch versions
@@ -224,13 +224,13 @@ struct Longterm {
   }
 };
 
-// K1: pre-emphasis -> lattice predict
-template <int P>
+// K1: pre-emphasis (when EMPH) -> lattice predict
+template <int P, bool EMPH = true>
 struct Stage1 {
   PreEmphasis pre;
   Lattice<P, false> lattice;
   SLA_HD Stage1(const int32_t* coef, int p) : lattice(coef, p) {}
-  SLA_HD int32_t operator()(int32_t x, int) { return lattice(pre(x)); }
+  SLA_HD int32_t operator()(int32_t x, int) { return lattice(EMPH ? pre(x) : x); }
 };
 
 // K2: long-term FIR predict -> LMS predict
@@ -257,6 +257,54 @@ struct Synth {
   SLA_HD int32_t operator()(int32_t x, int n) {
     return de(lattice(longterm(lms(x), n)));
   }
+};
+
+// K4: K1's body then K2's in one sample loop. The long-term FIR reads the
+// stage-1 residual, which the row writes to the (L, B) scratch h before the
+// taps read it: a tap at or ahead of n reads h[n], this sample's residual.
+template <int P, int T, int M>
+struct FusedEncode {
+  Stage1<P> stage1;
+  int32_t* h;
+  int64_t stride;
+  Stage2<T, M> stage2;
+  SLA_HD FusedEncode(int32_t* h_, int64_t stride_, const int32_t* coef, int p, int md,
+                     const int32_t* q15, int nt, int m)
+      : stage1(coef, p), h(h_), stride(stride_), stage2(h_, stride_, md, q15, nt, m) {}
+  SLA_HD int32_t operator()(int32_t x, int n) {
+    const int32_t r1 = stage1(x, n);
+    h[(int64_t)n * stride] = r1;
+    return stage2(r1, n);
+  }
+};
+
+// K5: lattice synthesize -> de-emphasis (when EMPH)
+template <int P, bool EMPH>
+struct LatticeSynth {
+  Lattice<P, true> lattice;
+  DeEmphasis de;
+  SLA_HD LatticeSynth(const int32_t* coef, int p) : lattice(coef, p) {}
+  SLA_HD int32_t operator()(int32_t x, int) {
+    const int32_t out = lattice(x);
+    return EMPH ? de(out) : out;
+  }
+};
+
+// K6: LMS synthesize alone
+template <int M>
+struct LmsSynth {
+  Lms<M, true> lms;
+  SLA_HD explicit LmsSynth(int m) : lms(m) {}
+  SLA_HD int32_t operator()(int32_t x, int) { return lms(x); }
+};
+
+// K7: long-term synthesize alone, over its own output history h
+template <int T>
+struct LongtermSynth {
+  Longterm<T, true> longterm;
+  SLA_HD LongtermSynth(int32_t* h, int64_t stride, int md, const int32_t* q15, int nt)
+      : longterm(h, h, stride, md, q15, nt) {}
+  SLA_HD int32_t operator()(int32_t x, int n) { return longterm(x, n); }
 };
 
 // Runs one row through `step` in sample order. x and y are the row's first

@@ -110,10 +110,18 @@ def cuda_library() -> ctypes.CDLL:
 
     def bind(lib):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.sla_lattice_predict.argtypes = [vp, vp, vp, i, i, i, vp]
-        lib.sla_stage2_predict.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
-        lib.sla_synth_cascade.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
-        for fn in (lib.sla_lattice_predict, lib.sla_stage2_predict, lib.sla_synth_cascade):
+        sigs = {
+            "sla_lattice_predict": [vp, vp, vp, i, i, i, i, vp],
+            "sla_stage2_predict": [vp, vp, vp, vp, i, i, i, i, vp],
+            "sla_synth_cascade": [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp],
+            "sla_fused_encode": [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp],
+            "sla_lattice_synth": [vp, vp, vp, i, i, i, i, vp],
+            "sla_lms_synth": [vp, vp, i, i, i, vp],
+            "sla_longterm_synth": [vp, vp, vp, vp, vp, i, i, i, vp],
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
             fn.restype = i
 
     return _load("sla_filters_cuda", build, bind)
@@ -130,11 +138,18 @@ def host_library() -> ctypes.CDLL:
 
     def bind(lib):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.sla_host_lattice_predict.argtypes = [vp, vp, vp, i, i, i, i]
-        lib.sla_host_stage2_predict.argtypes = [vp, vp, vp, vp, i, i, i, i, i]
-        lib.sla_host_synth_cascade.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i]
-        for fn in (lib.sla_host_lattice_predict, lib.sla_host_stage2_predict,
-                   lib.sla_host_synth_cascade):
+        sigs = {  # the CUDA entries' arguments with `fixed` in place of the stream
+            "sla_host_lattice_predict": [vp, vp, vp, i, i, i, i, i],
+            "sla_host_stage2_predict": [vp, vp, vp, vp, i, i, i, i, i],
+            "sla_host_synth_cascade": [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i],
+            "sla_host_fused_encode": [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i],
+            "sla_host_lattice_synth": [vp, vp, vp, i, i, i, i, i],
+            "sla_host_lms_synth": [vp, vp, i, i, i, i],
+            "sla_host_longterm_synth": [vp, vp, vp, vp, vp, i, i, i, i],
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
             fn.restype = None
 
     return _load("sla_filters_host", build, bind)

@@ -1,15 +1,21 @@
-"""Wrappers of the three CUDA filter kernels (csrc/filters.cu), each beside
+"""Wrappers of the seven CUDA filter kernels (csrc/filters.cu), each beside
 its plain PyTorch version.
 
-    lattice_predict  K1  pre-emphasis -> PARCOR lattice predict
+    lattice_predict  K1  pre-emphasis (optional) -> PARCOR lattice predict
     stage2_predict   K2  long-term FIR predict -> LMS predict
     synth_cascade    K3  LMS synth -> long-term synth -> lattice synth
                          -> de-emphasis
+    fused_encode     K4  K1 then K2 in one pass, the FIR reading the
+                         stage-1 residual
+    lattice_synth    K5  PARCOR lattice synth -> de-emphasis (optional)
+    lms_synth        K6  LMS synth
+    longterm_synth   K7  long-term synth over its own output
 
 They replace sla_tpu/kernels/pallas_filters.py's lattice_filter_tl /
-lattice_filter_wide_tl (predict), fused_stage2_tl / fused_stage2_wide_tl,
-and fused_synth_tl / fused_synth_wide_tl; K2 also covers the predict
-direction of lms_filter_tl.
+lattice_filter_wide_tl (K1 predict, K5 synthesize), fused_stage2_tl /
+fused_stage2_wide_tl, fused_synth_tl / fused_synth_wide_tl, fused_encode_tl
+/ fused_encode_wide_tl, lms_filter_tl (K2 covers its predict direction, K6
+its synthesize direction) and longterm_synth_tl.
 
 Every wrapper takes (B, L) int32 rows, each filtered from zero state (the
 format resets the filters at block start), and returns (B, L) int32. The
@@ -36,7 +42,10 @@ from .longterm import longterm_predict_q15, longterm_synthesize_q15
 
 MAX_PARCOR, MAX_LMS, MAX_TAPS = 48, 40, 5  # filters.cuh caps
 
-launches = {"lattice_predict": 0, "stage2_predict": 0, "synth_cascade": 0}
+launches = {
+    "lattice_predict": 0, "stage2_predict": 0, "synth_cascade": 0,
+    "fused_encode": 0, "lattice_synth": 0, "lms_synth": 0, "longterm_synth": 0,
+}
 
 
 def reset_launch_counts() -> None:
@@ -47,10 +56,18 @@ def reset_launch_counts() -> None:
 # -- plain versions ------------------------------------------------------------
 
 
-def lattice_predict_plain(data: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    B = data.shape[0]
-    emph, _ = pre_emphasis(data, torch.zeros((B,), dtype=torch.int32, device=data.device))
-    out, _ = _lattice_predict(emph, coef, lattice_init_state(B, coef.shape[1], data.device))
+def _zero_rows(data: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((data.shape[0],), dtype=torch.int32, device=data.device)
+
+
+def lattice_predict_plain(
+    data: torch.Tensor, coef: torch.Tensor, emphasis: bool = True
+) -> torch.Tensor:
+    if emphasis:
+        data, _ = pre_emphasis(data, _zero_rows(data))
+    out, _ = _lattice_predict(
+        data, coef, lattice_init_state(data.shape[0], coef.shape[1], data.device)
+    )
     return out
 
 
@@ -71,6 +88,34 @@ def synth_cascade_plain(
     out, _ = longterm_synthesize_q15(out, md, q15)
     out, _ = lattice_synthesize(out, coef, lattice_init_state(B, coef.shape[1], dev))
     out, _ = de_emphasis(out, torch.zeros((B,), dtype=torch.int32, device=dev))
+    return out
+
+
+def fused_encode_plain(
+    data: torch.Tensor, coef: torch.Tensor, md: torch.Tensor, q15: torch.Tensor,
+    lms_order: int,
+) -> torch.Tensor:
+    return stage2_predict_plain(lattice_predict_plain(data, coef), md, q15, lms_order)
+
+
+def lattice_synth_plain(
+    data: torch.Tensor, coef: torch.Tensor, emphasis: bool = True
+) -> torch.Tensor:
+    out, _ = lattice_synthesize(
+        data, coef, lattice_init_state(data.shape[0], coef.shape[1], data.device)
+    )
+    if emphasis:
+        out, _ = de_emphasis(out, _zero_rows(data))
+    return out
+
+
+def lms_synth_plain(data: torch.Tensor, lms_order: int) -> torch.Tensor:
+    out, _ = lms_synthesize(data, lms_init_state(data.shape[0], lms_order, data.device), lms_order)
+    return out
+
+
+def longterm_synth_plain(data: torch.Tensor, md: torch.Tensor, q15: torch.Tensor) -> torch.Tensor:
+    out, _ = longterm_synthesize_q15(data, md, q15)
     return out
 
 
@@ -114,17 +159,19 @@ def _launch(name: str, fn, data: torch.Tensor, *args) -> torch.Tensor:
         return y_t.t().contiguous()
 
 
-def lattice_predict(data: torch.Tensor, coef: torch.Tensor) -> torch.Tensor:
-    """K1. data: (B, L) int32 samples; coef: (B, p) int32 Q15 c[1..p]."""
+def lattice_predict(
+    data: torch.Tensor, coef: torch.Tensor, emphasis: bool = True
+) -> torch.Tensor:
+    """K1. data: (B, L) int32 samples; coef: (B, p) int32 Q15 c[1..p];
+    emphasis: pre-emphasize first (the codec always does)."""
     _check(data, coef=coef)
     if data.numel() == 0:
         return data.clone()
     if data.device.type == "cpu":
-        return lattice_predict_plain(data, coef)
+        return lattice_predict_plain(data, coef, emphasis)
     B, L = data.shape
-    p = coef.shape[1]
     return _launch("lattice_predict", "sla_lattice_predict", data,
-                   coef.contiguous(), B, L, p)
+                   coef.contiguous(), B, L, coef.shape[1], int(emphasis))
 
 
 def stage2_predict(
@@ -158,3 +205,63 @@ def synth_cascade(
     return _launch("synth_cascade", "sla_synth_cascade", data,
                    hist, coef.contiguous(), md.contiguous(), q15.contiguous(),
                    B, L, coef.shape[1], q15.shape[1], lms_order)
+
+
+def fused_encode(
+    data: torch.Tensor, coef: torch.Tensor, md: torch.Tensor, q15: torch.Tensor,
+    lms_order: int,
+) -> torch.Tensor:
+    """K4. data: (B, L) int32 samples; coef (B, p); md (B,), q15 (B, T).
+    Returns the final residual, equal to K1 then K2."""
+    _check(data, coef=coef, md=md, q15=q15, lms_order=lms_order)
+    if data.numel() == 0:
+        return data.clone()
+    if data.device.type == "cpu":
+        return fused_encode_plain(data, coef, md, q15, lms_order)
+    B, L = data.shape
+    # the stage-1 residual's history, (L, B) like the data
+    hist = torch.empty((L, B), dtype=torch.int32, device=data.device)
+    return _launch("fused_encode", "sla_fused_encode", data,
+                   hist, coef.contiguous(), md.contiguous(), q15.contiguous(),
+                   B, L, coef.shape[1], q15.shape[1], lms_order)
+
+
+def lattice_synth(
+    data: torch.Tensor, coef: torch.Tensor, emphasis: bool = True
+) -> torch.Tensor:
+    """K5. data: (B, L) int32 lattice residual; coef (B, p); emphasis:
+    de-emphasize the lattice output."""
+    _check(data, coef=coef)
+    if data.numel() == 0:
+        return data.clone()
+    if data.device.type == "cpu":
+        return lattice_synth_plain(data, coef, emphasis)
+    B, L = data.shape
+    return _launch("lattice_synth", "sla_lattice_synth", data,
+                   coef.contiguous(), B, L, coef.shape[1], int(emphasis))
+
+
+def lms_synth(data: torch.Tensor, lms_order: int) -> torch.Tensor:
+    """K6. data: (B, L) int32 LMS residual. Order 0 passes through."""
+    _check(data, lms_order=lms_order)
+    if data.numel() == 0:
+        return data.clone()
+    if data.device.type == "cpu":
+        return lms_synth_plain(data, lms_order)
+    B, L = data.shape
+    return _launch("lms_synth", "sla_lms_synth", data, B, L, lms_order)
+
+
+def longterm_synth(data: torch.Tensor, md: torch.Tensor, q15: torch.Tensor) -> torch.Tensor:
+    """K7. data: (B, L) int32 long-term residual; md (B,), q15 (B, T). Rows
+    with md 0 pass through; a tap at or ahead of n contributes 0."""
+    _check(data, md=md, q15=q15)
+    if data.numel() == 0:
+        return data.clone()
+    if data.device.type == "cpu":
+        return longterm_synth_plain(data, md, q15)
+    B, L = data.shape
+    # the stage's output history, (L, B) like the data
+    hist = torch.empty((L, B), dtype=torch.int32, device=data.device)
+    return _launch("longterm_synth", "sla_longterm_synth", data,
+                   hist, md.contiguous(), q15.contiguous(), B, L, q15.shape[1])

@@ -10,8 +10,10 @@ The encode side stops between its two stages, because the long-term
     stage2: long-term predict -> LMS predict          (K2)
 
 Decode is one stage: LMS synth -> long-term synth -> lattice synth ->
-de-emphasis (K3). Each stage runs where its input tensor lies: the CUDA
-kernel on a CUDA device, the plain PyTorch version on the CPU
+de-emphasis (K3). A flow that already knows every filter parameter (the
+device tools, `entry.entry()`) runs the whole encode cascade as one kernel,
+`encode_filters_fused` (K4). Each stage runs where its input tensor lies:
+the CUDA kernel on a CUDA device, the plain PyTorch version on the CPU
 (kernels/cuda_filters.py). Rows need no padding: the kernels take any
 (B, L), every order the encoder admits, and every long-term lag.
 """
@@ -63,6 +65,21 @@ def decode_stage(
     md, q15 = longterm_params(pitch, ltm_coef, num_taps, residual.device)
     return cuda_filters.synth_cascade(
         residual, parcor_coef[:, :parcor_order], md, q15, lms_order
+    )
+
+
+def encode_filters_fused(
+    data: torch.Tensor, parcor_coef: torch.Tensor, pitch, ltm_coef,
+    parcor_order: int, num_taps: int, lms_order: int,
+) -> torch.Tensor:
+    """The whole encode cascade for known parameters in one pass (K4):
+    pre-emphasis -> lattice predict -> long-term predict -> LMS predict.
+    data: (B, L) int32; parcor_coef: (B, >=p) int32; pitch and ltm_coef
+    numpy as in encode_stage2. Equal to encode_stage1 then encode_stage2,
+    and to encode_filters, for every pitch and order."""
+    md, q15 = longterm_params(pitch, ltm_coef, num_taps, data.device)
+    return cuda_filters.fused_encode(
+        data, parcor_coef[:, :parcor_order], md, q15, lms_order
     )
 
 

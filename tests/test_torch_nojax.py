@@ -1,5 +1,6 @@
 """sla_tpu_torch never imports jax: a fresh interpreter that refuses every
-jax import runs a port encode/decode round trip on both backends."""
+jax import runs a port encode/decode round trip on both backends, the
+known-parameter entry step and the device tools' checks."""
 
 import pathlib
 import subprocess
@@ -30,6 +31,13 @@ for backend in ("device", "host"):
     dec = st.Decoder(st.DecoderConfig(backend=backend), device="cpu")
     assert np.array_equal(dec.decode_whole(blobs[-1])[1], pcm)
 assert blobs[0] == blobs[1]
+
+from sla_tpu_torch import entry
+from sla_tpu_torch.tools import bench_device, verify_device
+forward, args = entry.entry(device="cpu")
+assert forward(*args).shape == (16, 4096)
+assert all(ok for _, ok in bench_device.check_cells("cpu", rows=4, samples=256))
+assert all(ok for _, ok in verify_device.check_cascades("cpu", rows=4, samples=256))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "sla_tpu"))
 print("LOADED", loaded)
 """
