@@ -15,9 +15,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    at the main path's shape (2,048 rows x 12,288 samples, p 16, T 1, M 8)
    and at p 32, T 3, M 8, L 16,384; kernel and plain times by CUDA events,
    each kernel's bound (int32 operations or bytes, whichever takes longer
-   at the card's peak), and the fused encode (K4) against K1 + K2; K2's and
-   K3's ptxas resources, and their times beside the previous kernels' on
-   the same inputs (previous, new, new, previous) when those were built;
+   at the card's peak), and the fused encode (K4) against K1 + K2; K1-K4's
+   ptxas resources and the pipelines' shared memory, and K1-K4's times
+   beside the previous kernels' on the same inputs (previous, new, new,
+   previous) when those were built;
 3. slice: five minutes of seeded CD stereo (44.1 kHz, 16 bit) at preset 2
    through Encoder/Decoder(backend='device', device='cuda') — the stream
    must equal backend='host' byte for byte and decode to the exact PCM —
@@ -68,7 +69,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 # times; a plain checkout has none and skips that comparison
 PARENT = ROOT / "build" / "parent_csrc"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
-INT32_LANES_PER_SM = 64  # int32 lanes per SM per clock on Hopper
+# int32 operations an SM can issue per clock: four schedulers, one 32-lane
+# instruction each. The CUDA guide's 64 a clock is per class of integer
+# instruction; IMAD issues to the FMA pipe beside IADD3/SHF/LOP3 on the
+# integer pipe, and K1 ran at 125 % of a 64-lane bound on the H100.
+INT32_LANES_PER_SM = 128
 
 
 def log(phase: str, msg: str) -> None:
@@ -89,8 +94,9 @@ def clocks() -> tuple[float, float]:
 
 
 def parent_library():
-    """The previous kernels (build/parent_csrc/filters.cu) with their C
-    signatures, or None when their sources are not there."""
+    """The previous kernels (build/parent_csrc/filters.cu, the sources of
+    the commit before K1's and K4's redesign) with their C signatures, or
+    None when their sources are not there."""
     from sla_tpu_torch.kernels import build
 
     src = PARENT / "filters.cu"
@@ -102,9 +108,15 @@ def parent_library():
     )
     lib = ctypes.CDLL(str(path))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.sla_stage2_predict.argtypes = [vp, vp, vp, vp, i, i, i, i, vp]
-    lib.sla_synth_cascade.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp]
-    lib.sla_stage2_predict.restype = lib.sla_synth_cascade.restype = i
+    sigs = {
+        "sla_lattice_predict": [vp, vp, vp, i, i, i, i, vp],  # (L, B)
+        "sla_stage2_predict": [vp, vp, vp, vp, i, i, i, i, vp],  # (B, L)
+        "sla_synth_cascade": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],  # (B, L)
+        "sla_fused_encode": [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp],  # (L, B), hist
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, i
     return lib
 
 
@@ -174,7 +186,7 @@ def check_kernel(name, kern, plain, reps: int):
     err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max())
     if not torch.equal(out, ref):
         raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
-    ms = cuda_ms(kern, reps)
+    ms = cuda_ms(kern, reps, warmup=2)  # the clocks ramp back up after the plain version
     return err, ms, plain_ms
 
 
@@ -207,50 +219,65 @@ def bound(name, B, L, p, T, M, md, int32_per_s) -> tuple[float, str]:
 
 
 def pipe_resources(lib) -> None:
-    """K2's and K3's ptxas registers, stack and spills per instantiation,
-    and their blocks' dynamic shared memory."""
+    """K1-K4's ptxas registers, stack and spills per instantiation, and the
+    pipelines' (K2-K4) dynamic shared memory per block."""
     from sla_tpu_torch.kernels import build
 
+    names = "lattice_predict|stage2_predict|synth_cascade|fused_encode"
     current = None
     for ln in build.build_log().splitlines():
-        m = re.search(r"Compiling entry function '\S*?(stage2_predict|synth_cascade)_kernelI(\w*?)EEv", ln)
+        m = re.search(rf"Compiling entry function '\S*?({names})_kernelI(\w*?)EEv", ln)
         if m:
-            orders = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
-            current = f"{m.group(1)}<{orders}>"
+            args = [("true" if v == "1" else "false") if kind == "b" else v
+                    for kind, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+            current = f"{m.group(1)}<{','.join(args)}>"
         elif "Compiling entry function" in ln:
             current = None
         elif current and ("spill" in ln or "registers" in ln):
             log("kernels", f"ptxas {current}: {ln.strip()}")
     log("kernels", f"dynamic shared memory per block: stage2_predict {lib.sla_pipe_shared_bytes(2)} B, "
-        f"synth_cascade {lib.sla_pipe_shared_bytes(3)} B")
+        f"synth_cascade {lib.sla_pipe_shared_bytes(3)} B, "
+        f"fused_encode {lib.sla_pipe_shared_bytes(4)} B")
 
 
 def parent_times(parent, x, coef, md, q15, r1, M, reps: int = 5) -> dict:
-    """The previous K2 and K3 (one thread per row over (L, B), their wrapper's
-    two transposes included, as that wrapper ran them) against the new ones,
-    on the same inputs, in the order previous, new, new, previous. Both must
-    give the same rows."""
-    from sla_tpu_torch.kernels import cuda_filters as cf
+    """The previous K1-K4 against the new ones on the same inputs, in the
+    order previous, new, new, previous; both must give the same rows. Both
+    are called through ctypes alone, without the wrappers' argument checks.
+    The previous K1 and K4 ran one thread per row over (L, B), so their times
+    include the two transposes and K4's (L, B) history scratch that their
+    wrapper added; the previous K2 and K3 already took the (B, L) rows."""
+    from sla_tpu_torch.kernels import build
 
+    lib = build.cuda_library()
     B, L = x.shape
+    p, T = coef.shape[1], q15.shape[1]
     stream = torch.cuda.current_stream().cuda_stream
 
-    def old(fn, data, *args):
-        x_t = data.t().contiguous()
-        y_t = torch.empty_like(x_t)
+    def call(lib, fn, data, *args, rows: bool = True):
+        x_in = data if rows else data.t().contiguous()
+        y = torch.empty_like(x_in)
         ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        err = getattr(parent, fn)(x_t.data_ptr(), y_t.data_ptr(), *ptrs, stream)
+        err = getattr(lib, fn)(x_in.data_ptr(), y.data_ptr(), *ptrs, stream)
         if err:
-            raise RuntimeError(f"previous {fn}: cudaError {err}")
-        return y_t.t().contiguous()
+            raise RuntimeError(f"{fn}: cudaError {err}")
+        return y if rows else y.t().contiguous()
 
-    hist = torch.empty((L, B), dtype=torch.int32, device=x.device)
+    def old_fused():
+        hist = torch.empty((L, B), dtype=torch.int32, device=x.device)
+        return call(parent, "sla_fused_encode", x, hist, coef, md, q15, B, L, p, T, M, rows=False)
+
     pairs = {
-        "stage2_predict": (lambda: old("sla_stage2_predict", r1, md, q15, B, L, q15.shape[1], M),
-                           lambda: cf.stage2_predict(r1, md, q15, M)),
-        "synth_cascade": (lambda: old("sla_synth_cascade", x, hist, coef, md, q15, B, L,
-                                      coef.shape[1], q15.shape[1], M),
-                          lambda: cf.synth_cascade(x, coef, md, q15, M)),
+        "lattice_predict": (lambda: call(parent, "sla_lattice_predict", x, coef, B, L, p, 1,
+                                         rows=False),
+                            lambda: call(lib, "sla_lattice_predict", x, coef, B, L, p, 1)),
+        "stage2_predict": (lambda: call(parent, "sla_stage2_predict", r1, md, q15, B, L, T, M),
+                           lambda: call(lib, "sla_stage2_predict", r1, md, q15, B, L, T, M)),
+        "synth_cascade": (lambda: call(parent, "sla_synth_cascade", x, coef, md, q15, B, L, p,
+                                       T, M),
+                          lambda: call(lib, "sla_synth_cascade", x, coef, md, q15, B, L, p, T, M)),
+        "fused_encode": (old_fused,
+                         lambda: call(lib, "sla_fused_encode", x, coef, md, q15, B, L, p, T, M)),
     }
     out = {}
     for name, (prev, new) in pairs.items():
@@ -289,7 +316,7 @@ def phase_kernels(env: dict) -> dict:
         }
         shape = {}
         for name, (kern, plain) in cases.items():
-            err, ms, plain_ms = check_kernel(name, kern, plain, reps=5)
+            err, ms, plain_ms = check_kernel(name, kern, plain, reps=10)
             bound_ms, bound_by = bound(name, B, L, p, T, M, md_np, env["int32_per_s"])
             shape[name] = ms
             log("kernels", f"{name} B {B} L {L} p {p} T {T} M {M}: exact, kernel "

@@ -4,25 +4,27 @@
 // filters.cuh.
 //
 // Design. Every block x channel row is independent — the format resets
-// every filter at block start — and the samples of a row are strictly
-// sequential, so a row's chain runs in ONE THREAD with the sample loop
-// inside it. Filter orders that the presets use are template arguments, so
-// the lattice and LMS state stays in registers; any other order
-// EncoderConfig admits takes the run-time instantiation.
+// every filter at block start. Filter orders that the presets use are
+// template arguments, so the filter state stays in registers; any other
+// order EncoderConfig admits takes the run-time instantiation.
 //
-// K1 and K4-K7 run one thread per row over the sample-major (L, B) layout:
-// at each sample a warp's 32 rows read and write 128 contiguous bytes, and
-// the sample loads are batched (kLoadBatch) so their latency overlaps.
-// K2 and K3, the main path's encode stage 2 and decode, are pipelines over
-// tiles (see below): a warp per stage, the input prefetched into shared
-// memory, the long-term history in shared memory, the (B, L) rows read and
-// written directly.
+// K1, the encode's stage 1, has no feedback (filters.cuh, "K1"), so it is a
+// stencil: a warp per segment of a row, lanes over samples, read and written
+// in the (B, L) rows as they are. The synthesis filters and the LMS feed
+// back, so their samples are strictly sequential and a row's chain runs in
+// one thread: K2, K3 and K4 are pipelines over tiles (see below), a warp per
+// stage, the input prefetched into shared memory, the long-term history in
+// shared memory, the (B, L) rows read and written directly. K5-K7 (off the
+// codec's path) still run one thread per row over the sample-major (L, B)
+// layout, which their wrapper makes with two transposes: at each sample a
+// warp's 32 rows read and write 128 contiguous bytes, and the sample loads
+// are batched (kLoadBatch) so their latency overlaps.
 //
-// What bounds them on this card: latency. Each sample is a dependent chain
-// of about 2p + 2M multiply-adds (lattice stages, LMS taps) per row, and
-// the rows are the only parallel axis: 2,048 rows at 12,288-sample blocks
-// give 64 row groups of 32. Memory traffic is a few bytes per sample and
-// per row, far below what the card moves.
+// What bounds the sequential kernels on this card: latency. Each sample is
+// a dependent chain of about 2p + 2M multiply-adds (lattice stages, LMS
+// taps) per row, and the rows are the only parallel axis: 2,048 rows at
+// 12,288-sample blocks give 64 row groups of 32. Memory traffic is a few
+// bytes per sample and per row, far below what the card moves.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,35 +33,50 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 
 inline dim3 grid_for(int B) { return dim3((unsigned)((B + kThreads - 1) / kThreads)); }
 
 // K1. Replaces sla_tpu/kernels/pallas_filters.py lattice_filter_tl
 // (synthesize=False; Pallas body _lattice_kernel) and lattice_filter_wide_tl
 // (_lattice_kernel_wide): pre-emphasis (when EMPH, the Pallas
-// pre_emphasis flag), then PARCOR lattice predict.
+// pre_emphasis flag), then PARCOR lattice predict. Bound on this card: the
+// int32 operations (8 a stage and sample), once the samples of a row run in
+// parallel, which the stencil allows. Warp w takes segment w % nseg of row
+// w / nseg (sla::lattice_segment): 2,048 rows x 12,288 samples at p 16 give
+// 26,624 warps, each lane 4 independent samples per stage and one shuffle,
+// with 16-byte loads and stores where a row is aligned. The warm-up costs
+// p of every segment's kSegmentSpan samples.
 template <int P, bool EMPH>
 __global__ void __launch_bounds__(kThreads)
 lattice_predict_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
-                       const int32_t* __restrict__ coef, int B, int L, int p) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  sla::Stage1<P, EMPH> step(coef + (int64_t)row * p, p);
-  sla::run_row(step, x + row, y + row, B, L);
+                       const int32_t* __restrict__ coef, int B, int L, int p, int seg,
+                       int nseg) {
+  const int64_t w = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (w >= (int64_t)B * nseg) return;  // whole warps: the shuffles need all 32 lanes
+  const int64_t row = w / nseg;
+  const int s = (int)(w - row * nseg);
+  const sla::WarpLanes lanes{(int)(threadIdx.x & 31)};
+  sla::lattice_segment<P, EMPH>(lanes, x + row * L, y + row * L, L, s * seg, seg,
+                                coef + row * p, p);
 }
 
-// -- K2 and K3: pipelines of warps over tiles (filters.cuh, SynthPipe and
-// Stage2Pipe). A block owns kGroup = 32 rows, one per lane, so the grid is
-// one row group per block and 2,048 rows land on 64 SMs. Warp 0 is the
-// producer: it keeps the next input tile in flight with cp.async and stores
-// finished tiles, so no stage waits on device memory, and both kernels read
-// and write the (B, L) rows directly (no transposes around them). The
-// other warps run the stages; all meet at one named barrier per tile.
+// -- K2, K3 and K4: pipelines of warps over tiles (filters.cuh, Stage2Pipe,
+// SynthPipe and EncodePipe). A block owns kGroup = 32 rows, one per lane,
+// so the grid is one row group per block and 2,048 rows land on 64 SMs.
+// Warp 0 is the producer: it keeps the next input tile in flight with
+// cp.async and stores finished tiles, so no stage waits on device memory,
+// and the kernels read and write the (B, L) rows directly (no transposes
+// around them). The other warps run the stages; all meet at one named
+// barrier per tile.
 
-constexpr int kPipeThreads = 128;
+constexpr int kPipeThreads = 128;    // K2, K3: four warps
+constexpr int kEncodeThreads = 256;  // K4: eight warps
+constexpr int kStage1Warps = 5;      // K4: warps 2-4 and 6-7
 
+template <int kCount = kPipeThreads>
 __device__ __forceinline__ void pipe_barrier() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kPipeThreads) : "memory");
+  asm volatile("bar.sync 1, %0;" ::"n"(kCount) : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
@@ -191,24 +208,59 @@ synth_cascade_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
 
 // K4. Replaces pallas_filters.py fused_encode_tl (_fused_encode_kernel_win)
 // and fused_encode_wide_tl (_fused_encode_kernel_wide): pre-emphasis,
-// lattice predict, long-term FIR predict and LMS predict in one sample loop,
-// one read of x and one write of y per sample instead of K1's and K2's two
-// each. The FIR's history is the stage-1 residual, which each row writes to
-// the (L, B) scratch h just before its taps read it (a tap at or ahead of n
-// reads this sample's residual, as K2 reads its input): every lag and T = 0
+// lattice predict, long-term FIR predict and LMS predict in one pass, one
+// read of x and one write of y per sample instead of K1's and K2's two
+// each. Bound on this card: the LMS predict chain, as in K2. K2's pipeline
+// (sla::EncodePipe) with stage 1 as a role ahead of the FIR: warp 0 loads x
+// tiles and stores y tiles, warp 1 runs only the LMS chain, and five warps
+// run stage 1 on K1's lane schedule (one row's tile at a time, lanes over
+// samples) into the per-row ring, then the FIR from it. Five, so that stage
+// 1 at p 32 (twice p 16's stages) still hides under the LMS chain; warp 5
+// only meets the barrier, because it would share the LMS warp's scheduler
+// (warp % 4). The FIR's history is the stage-1 residual in the ring, so a
+// tap at or ahead of n reads this sample's residual: every lag and T = 0
 // take the same kernel, with no window plan or lag sort.
 template <int P, int T, int M>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kEncodeThreads)
 fused_encode_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
-                    int32_t* h, const int32_t* __restrict__ coef,
+                    const int32_t* __restrict__ coef,
                     const int32_t* __restrict__ md,
                     const int32_t* __restrict__ q15, int B, int L, int p,
                     int nt, int m) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  sla::FusedEncode<P, T, M> step(h + row, B, coef + (int64_t)row * p, p, md[row],
-                                 q15 + (int64_t)row * nt, nt, m);
-  sla::run_row(step, x + row, y + row, B, L);
+  extern __shared__ int32_t smem[];
+  const sla::EncodePipe pipe(smem, L);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * sla::kGroup;
+  const int rows = min(sla::kGroup, B - row0);
+  const int iters = pipe.iterations();
+  if (warp == 0) {
+    for (int it = 0; it < iters; ++it) {
+      produce(pipe, it, x, y, row0, rows, lane);
+      pipe_barrier<kEncodeThreads>();
+    }
+  } else if (warp == 1) {
+    sla::Tiled<sla::LmsStep<M, false>> lms(m);
+    for (int it = 0; it < iters; ++it) {
+      if (lane < rows) pipe.lms(lms, it, lane);
+      pipe_barrier<kEncodeThreads>();
+    }
+  } else if (warp == 5) {
+    for (int it = 0; it < iters; ++it) pipe_barrier<kEncodeThreads>();
+  } else {
+    const int first = warp < 5 ? warp - 2 : warp - 3;  // 0 .. kStage1Warps - 1
+    const sla::WarpLanes lanes{lane};
+    // the first barrier orders these before stage 1's first tile (it = kStage1)
+    for (int r = first; r < rows; r += kStage1Warps) pipe.clear(r, lane, 32);
+    for (int it = 0; it < iters; ++it) {
+      for (int r = first; r < rows; r += kStage1Warps)
+        pipe.stage1<P>(lanes, it, r, coef + (int64_t)(row0 + r) * p, p);
+      for (int r = first; r < rows; r += kStage1Warps) {
+        const int32_t* q = q15 + (int64_t)(row0 + r) * nt;
+        pipe.fir<T>(it, r, lane, 32, md[row0 + r], q, nt);
+      }
+      pipe_barrier<kEncodeThreads>();
+    }
+  }
 }
 
 // K5. Replaces pallas_filters.py lattice_filter_tl(synthesize=True)
@@ -252,17 +304,18 @@ longterm_synth_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
   sla::run_row(step, x + row, y + row, B, L);
 }
 
-// Launches a pipeline kernel with `words` int32 of dynamic shared memory
-// (above the 48 KB default, so the kernel is allowed it first), one block
-// per row group.
+// Launches a pipeline kernel of `threads` threads a block with `words`
+// int32 of dynamic shared memory (above the 48 KB default, so the kernel is
+// allowed it first), one block per row group.
 template <class... KArgs, class... Args>
-int launch_pipe(void (*kernel)(KArgs...), int words, int B, cudaStream_t s, Args... args) {
+int launch_pipe(void (*kernel)(KArgs...), int threads, int words, int B, cudaStream_t s,
+                Args... args) {
   const size_t bytes = (size_t)words * sizeof(int32_t);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((B + sla::kGroup - 1) / sla::kGroup));
-  kernel<<<grid, kPipeThreads, bytes, s>>>(args...);
+  kernel<<<grid, threads, bytes, s>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -277,17 +330,19 @@ extern "C" {
 int sla_lattice_predict(const int32_t* x, int32_t* y, const int32_t* coef,
                         int B, int L, int p, int emphasis, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 g = grid_for(B);
+  const int seg = sla::segment_length(p);
+  const int nseg = (L + seg - 1) / seg;
+  const dim3 g((unsigned)(((int64_t)B * nseg + kWarps - 1) / kWarps));
   if (!emphasis) {
-    lattice_predict_kernel<0, false><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
+    lattice_predict_kernel<0, false><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p, seg, nseg);
   } else if (p == 8) {
-    lattice_predict_kernel<8, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
+    lattice_predict_kernel<8, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p, seg, nseg);
   } else if (p == 16) {
-    lattice_predict_kernel<16, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
+    lattice_predict_kernel<16, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p, seg, nseg);
   } else if (p == 32) {
-    lattice_predict_kernel<32, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
+    lattice_predict_kernel<32, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p, seg, nseg);
   } else {
-    lattice_predict_kernel<0, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
+    lattice_predict_kernel<0, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p, seg, nseg);
   }
   return (int)cudaGetLastError();
 }
@@ -311,10 +366,11 @@ int sla_lattice_synth(const int32_t* x, int32_t* y, const int32_t* coef,
 }
 
 // Dynamic shared memory of a pipeline kernel's block, in bytes: 2 for K2,
-// 3 for K3, 0 otherwise.
+// 3 for K3, 4 for K4, 0 otherwise.
 int sla_pipe_shared_bytes(int kernel) {
   const int words = kernel == 2 ? sla::Stage2Pipe::kWords
-                  : kernel == 3 ? sla::SynthPipe::kWords : 0;
+                  : kernel == 3 ? sla::SynthPipe::kWords
+                  : kernel == 4 ? sla::EncodePipe::kWords : 0;
   return words * (int)sizeof(int32_t);
 }
 
@@ -324,13 +380,13 @@ int sla_stage2_predict(const int32_t* x, int32_t* y, const int32_t* md,
   cudaStream_t s = (cudaStream_t)stream;
   const int words = sla::Stage2Pipe::kWords;
   if (nt == 1 && m == 4) {
-    return launch_pipe(stage2_predict_kernel<1, 4>, words, B, s, x, y, md, q15, B, L, nt, m);
+    return launch_pipe(stage2_predict_kernel<1, 4>, kPipeThreads, words, B, s, x, y, md, q15, B, L, nt, m);
   } else if (nt == 1 && m == 8) {
-    return launch_pipe(stage2_predict_kernel<1, 8>, words, B, s, x, y, md, q15, B, L, nt, m);
+    return launch_pipe(stage2_predict_kernel<1, 8>, kPipeThreads, words, B, s, x, y, md, q15, B, L, nt, m);
   } else if (nt == 3 && m == 8) {
-    return launch_pipe(stage2_predict_kernel<3, 8>, words, B, s, x, y, md, q15, B, L, nt, m);
+    return launch_pipe(stage2_predict_kernel<3, 8>, kPipeThreads, words, B, s, x, y, md, q15, B, L, nt, m);
   }
-  return launch_pipe(stage2_predict_kernel<0, 0>, words, B, s, x, y, md, q15, B, L, nt, m);
+  return launch_pipe(stage2_predict_kernel<0, 0>, kPipeThreads, words, B, s, x, y, md, q15, B, L, nt, m);
 }
 
 int sla_synth_cascade(const int32_t* x, int32_t* y, const int32_t* coef,
@@ -339,35 +395,32 @@ int sla_synth_cascade(const int32_t* x, int32_t* y, const int32_t* coef,
   cudaStream_t s = (cudaStream_t)stream;
   const int words = sla::SynthPipe::kWords;
   if (p == 8 && nt == 1 && m == 4) {  // preset 0
-    return launch_pipe(synth_cascade_kernel<8, 1, 4>, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
+    return launch_pipe(synth_cascade_kernel<8, 1, 4>, kPipeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
   } else if (p == 8 && nt == 1 && m == 8) {  // preset 1
-    return launch_pipe(synth_cascade_kernel<8, 1, 8>, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
+    return launch_pipe(synth_cascade_kernel<8, 1, 8>, kPipeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
   } else if (p == 16 && nt == 1 && m == 8) {  // preset 2
-    return launch_pipe(synth_cascade_kernel<16, 1, 8>, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
+    return launch_pipe(synth_cascade_kernel<16, 1, 8>, kPipeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
   } else if (p == 32 && nt == 3 && m == 8) {  // presets 3 and 4
-    return launch_pipe(synth_cascade_kernel<32, 3, 8>, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
+    return launch_pipe(synth_cascade_kernel<32, 3, 8>, kPipeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
   }
-  return launch_pipe(synth_cascade_kernel<0, 0, 0>, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
+  return launch_pipe(synth_cascade_kernel<0, 0, 0>, kPipeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
 }
 
-int sla_fused_encode(const int32_t* x, int32_t* y, int32_t* h,
-                     const int32_t* coef, const int32_t* md,
+int sla_fused_encode(const int32_t* x, int32_t* y, const int32_t* coef, const int32_t* md,
                      const int32_t* q15, int B, int L, int p, int nt, int m,
                      void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 g = grid_for(B);
+  const int words = sla::EncodePipe::kWords;
   if (p == 8 && nt == 1 && m == 4) {  // preset 0
-    fused_encode_kernel<8, 1, 4><<<g, kThreads, 0, s>>>(x, y, h, coef, md, q15, B, L, p, nt, m);
+    return launch_pipe(fused_encode_kernel<8, 1, 4>, kEncodeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
   } else if (p == 8 && nt == 1 && m == 8) {  // preset 1
-    fused_encode_kernel<8, 1, 8><<<g, kThreads, 0, s>>>(x, y, h, coef, md, q15, B, L, p, nt, m);
+    return launch_pipe(fused_encode_kernel<8, 1, 8>, kEncodeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
   } else if (p == 16 && nt == 1 && m == 8) {  // preset 2
-    fused_encode_kernel<16, 1, 8><<<g, kThreads, 0, s>>>(x, y, h, coef, md, q15, B, L, p, nt, m);
+    return launch_pipe(fused_encode_kernel<16, 1, 8>, kEncodeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
   } else if (p == 32 && nt == 3 && m == 8) {  // presets 3 and 4
-    fused_encode_kernel<32, 3, 8><<<g, kThreads, 0, s>>>(x, y, h, coef, md, q15, B, L, p, nt, m);
-  } else {
-    fused_encode_kernel<0, 0, 0><<<g, kThreads, 0, s>>>(x, y, h, coef, md, q15, B, L, p, nt, m);
+    return launch_pipe(fused_encode_kernel<32, 3, 8>, kEncodeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
   }
-  return (int)cudaGetLastError();
+  return launch_pipe(fused_encode_kernel<0, 0, 0>, kEncodeThreads, words, B, s, x, y, coef, md, q15, B, L, p, nt, m);
 }
 
 int sla_lms_synth(const int32_t* x, int32_t* y, int B, int L, int m, void* stream) {

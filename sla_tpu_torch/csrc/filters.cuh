@@ -1,8 +1,8 @@
-// Per-row bodies of the seven filter kernels (filters.cu), written once as
-// __host__ __device__ code: nvcc builds them into the CUDA kernels, and a
-// host build (filters_host.cpp, g++ -fwrapv) runs the same bodies on the CPU
-// so the tests can hold their arithmetic against the plain PyTorch versions
-// without a card.
+// Bodies and schedules of the seven filter kernels (filters.cu), written
+// once as __host__ __device__ code: nvcc builds them into the CUDA kernels,
+// and a host build (filters_host.cpp, g++ -fwrapv) runs the same code on the
+// CPU, K1's lanes and K2-K4's tile pipelines included, so the tests can hold
+// it against the plain PyTorch versions without a card.
 //
 // Semantics are the reference's (src/SLAPredictor.c), as sla_tpu's scan
 // twins state them (sla_tpu/kernels/{emphasis,lattice,lms,longterm}.py):
@@ -18,8 +18,9 @@
 // Orders: a template argument N > 0 fixes an order at compile time, so the
 // loops over it unroll and the filter state stays in registers; N == 0
 // takes the order at run time, up to the caps below (EncoderConfig's
-// maxima, sla_tpu/encoder.py:65-69), with the state in local memory. A
-// run-time order of 0 is a passthrough, as in the reference.
+// maxima, sla_tpu/encoder.py:65-69), with the state in local memory (K1's
+// run-time coefficients and carries: a 384-byte stack frame). A run-time
+// order of 0 is a passthrough, as in the reference.
 #pragma once
 
 #include <stdint.h>
@@ -62,7 +63,7 @@ SLA_HD int32_t bit_length(uint32_t m) {
 #endif
 }
 
-// y[n] = x[n] - ((x[n-1] * 31) >> 5), zero state
+// y[n] = x[n] - ((x[n-1] * 31) >> 5); prev is x[n-1] (0 at the row start)
 struct PreEmphasis {
   int32_t prev = 0;
   SLA_HD int32_t operator()(int32_t x) {
@@ -81,8 +82,9 @@ struct DeEmphasis {
   }
 };
 
-// PARCOR lattice, predict or synthesize, from zero state. coef: c[1..p].
-template <int P, bool SYNTH>
+// PARCOR lattice synthesis from zero state. coef: c[1..p]. (The predict
+// direction is K1's stencil below.)
+template <int P>
 struct Lattice {
   static constexpr int kCap = P > 0 ? P : kMaxParcor;
   int p;
@@ -99,32 +101,175 @@ struct Lattice {
     b[n] = 0;
   }
 
+  // stages p..1: f += q(c[k], b[k-1]); b[k] = b[k-1] - q(c[k], f)
   SLA_HD int32_t operator()(int32_t x) {
     const int n = P > 0 ? P : p;
     int32_t f = x;
-    if (!SYNTH) {
-      // f[k] = f[k-1] - q(c[k], b[k-1]); b[k] = b[k-1] - q(c[k], f[k-1])
-      int32_t carry = x;  // the new b[0]
-      SLA_UNROLL
-      for (int k = 0; k < n; ++k) {
-        const int32_t bk = b[k];
-        b[k] = carry;
-        carry = wsub(bk, qmul(c[k], f));
-        f = wsub(f, qmul(c[k], bk));
-      }
-      b[n] = carry;
-    } else {
-      // stages p..1: f += q(c[k], b[k-1]); b[k] = b[k-1] - q(c[k], f)
-      SLA_UNROLL
-      for (int k = n - 1; k >= 0; --k) {
-        f = wadd(f, qmul(c[k], b[k]));
-        b[k + 1] = wsub(b[k], qmul(c[k], f));
-      }
-      b[0] = f;
+    SLA_UNROLL
+    for (int k = n - 1; k >= 0; --k) {
+      f = wadd(f, qmul(c[k], b[k]));
+      b[k + 1] = wsub(b[k], qmul(c[k], f));
     }
+    b[0] = f;
     return f;
   }
 };
+
+// -- K1: the lattice predict as a stencil over samples -----------------------
+//
+// The predict lattice has no feedback: at sample n stage k reads b_k[n-1],
+// which is a function of the input alone (b_k[n] reads e[n-k .. n], e the
+// pre-emphasized input), so y[n] depends only on x[n-p-1 .. n] and the
+// samples of a row can be computed in parallel. A warp walks a row in
+// chunks of 32 lanes x V samples, lane l owning samples base + V*l ..
+// base + V*l + V-1, and computes a chunk stage by stage: within a stage a
+// lane's V samples are independent, and the one value that crosses lanes is
+// b_k at the sample before a lane's first, its left neighbour's last (lane
+// 0: the previous chunk's last, kept in carry[k]). Nothing is re-associated:
+// every (stage, sample) value comes from the same operands by the same
+// operations as the sequential lattice; only the order differs.
+
+// The lanes of one warp as the code of one thread sees them. On the card
+// (WarpLanes) a thread holds one lane and rotate() is a shuffle; the host
+// build (HostLanes) holds all 32 lanes of a warp in arrays and moves the
+// values between them, so the CPU tests run the kernels' lane schedule.
+// rotate(v): lane l receives lane (l - 1) mod 32's value, so lane 0 gets
+// lane 31's. lane(i): the lane of the i-th value this thread holds.
+struct HostLanes {
+  static constexpr int kCount = 32;
+  int lane(int i) const { return i; }
+  void rotate(int32_t* v) const {
+    const int32_t last = v[31];
+    for (int l = 31; l > 0; --l) v[l] = v[l - 1];
+    v[0] = last;
+  }
+};
+
+#if defined(__CUDACC__)
+struct WarpLanes {
+  static constexpr int kCount = 1;
+  int self;
+  SLA_HD int lane(int) const { return self; }
+  SLA_HD void rotate(int32_t* v) const {
+#if defined(__CUDA_ARCH__)
+    v[0] = __shfl_sync(0xffffffffu, v[0], (self + 31) & 31);
+#endif
+  }
+};
+#endif
+
+// One chunk of a row through pre-emphasis (when EMPH) and the predict
+// lattice. f[i][j]: sample j of the i-th lane this thread holds, in place,
+// input in, output out. c: the p coefficients; carry[k]: b_k at the sample
+// before the chunk; emph: the input sample before the chunk. Both are
+// updated to the chunk's last sample, and only the holder of lane 0 keeps
+// them (the other lanes' copies are not read).
+template <int P, bool EMPH, int V, class Lanes>
+SLA_HD void lattice_chunk(const Lanes& lanes, int32_t (&f)[Lanes::kCount][V], const int32_t* c,
+                          int32_t* carry, int32_t& emph, int p_rt) {
+  constexpr int N = Lanes::kCount;
+  const int p = P > 0 ? P : p_rt;
+  int32_t t[N];
+  if (EMPH) {
+    for (int i = 0; i < N; ++i) t[i] = f[i][V - 1];
+    lanes.rotate(t);
+    for (int i = 0; i < N; ++i) {
+      PreEmphasis pre{lanes.lane(i) == 0 ? emph : t[i]};
+      SLA_UNROLL
+      for (int j = 0; j < V; ++j) f[i][j] = pre(f[i][j]);
+    }
+    for (int i = 0; i < N; ++i)
+      if (lanes.lane(i) == 0) emph = t[i];
+  }
+  int32_t b[N][V];  // b_k, from b_0 = e
+  for (int i = 0; i < N; ++i) {
+    SLA_UNROLL
+    for (int j = 0; j < V; ++j) b[i][j] = f[i][j];
+  }
+  SLA_UNROLL
+  for (int k = 0; k < p; ++k) {
+    // f_{k+1}[n] = f_k[n] - q(c_k, b_k[n-1]); b_{k+1}[n] = b_k[n-1] - q(c_k, f_k[n])
+    for (int i = 0; i < N; ++i) t[i] = b[i][V - 1];
+    lanes.rotate(t);
+    for (int i = 0; i < N; ++i) {
+      const int32_t first = lanes.lane(i) == 0 ? carry[k] : t[i];
+      SLA_UNROLL
+      for (int j = V - 1; j >= 0; --j) {  // downwards: b[i][j - 1] is still b_k
+        const int32_t bp = j > 0 ? b[i][j - 1] : first;
+        const int32_t fo = f[i][j];
+        f[i][j] = wsub(fo, qmul(c[k], bp));
+        b[i][j] = wsub(bp, qmul(c[k], fo));
+      }
+    }
+    for (int i = 0; i < N; ++i)
+      if (lanes.lane(i) == 0) carry[k] = t[i];
+  }
+}
+
+constexpr int kLaneSamples = 4;                    // K1: samples per lane and chunk
+constexpr int kChunk = 32 * kLaneSamples;          // K1: samples per chunk
+constexpr int kSegmentSpan = 8 * kChunk;           // K1: samples a warp walks, warm-up included
+
+// K1's segment length at order p: the span less the warm-up, so that every
+// segment but a row's last walks whole chunks.
+SLA_HD int segment_length(int p) { return kSegmentSpan - p; }
+
+// Lane samples n .. n + kLaneSamples - 1 of a row of L, 0 outside the row;
+// one 16-byte load on the card where they are aligned and inside it.
+SLA_HD void load_lane(const int32_t* row, int L, int n, int32_t* v) {
+  static_assert(kLaneSamples == 4, "one int4 a lane");
+#if defined(__CUDA_ARCH__)
+  if (n >= 0 && n + 4 <= L && ((uintptr_t)(row + n) & 15) == 0) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(row + n));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    return;
+  }
+#endif
+  SLA_UNROLL
+  for (int j = 0; j < kLaneSamples; ++j) v[j] = n + j >= 0 && n + j < L ? row[n + j] : 0;
+}
+
+// Stores those of lane samples n .. n + kLaneSamples - 1 that lie in
+// [lo, hi).
+SLA_HD void store_lane(int32_t* row, int lo, int hi, int n, const int32_t* v) {
+#if defined(__CUDA_ARCH__)
+  if (n >= lo && n + 4 <= hi && ((uintptr_t)(row + n) & 15) == 0) {
+    *reinterpret_cast<int4*>(row + n) = make_int4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#endif
+  SLA_UNROLL
+  for (int j = 0; j < kLaneSamples; ++j)
+    if (n + j >= lo && n + j < hi) row[n + j] = v[j];
+}
+
+// K1 on one segment of one row: outputs [start, start + seg) of the L
+// samples x, into y. The warp starts from zero state exactly p samples
+// before `start`, with the pre-emphasis seeded by the sample before those,
+// and discards the p outputs of that warm-up: after p samples every b_k is
+// exact. Before the row start the input reads as 0, which keeps the zero
+// state (q(c, 0) = 0), so a segment at the row start needs no special case.
+template <int P, bool EMPH, class Lanes>
+SLA_HD void lattice_segment(const Lanes& lanes, const int32_t* x, int32_t* y, int L, int start,
+                            int seg, const int32_t* coef, int p_rt) {
+  constexpr int N = Lanes::kCount, V = kLaneSamples, kCap = P > 0 ? P : kMaxParcor;
+  const int p = P > 0 ? P : p_rt;
+  int32_t c[kCap], carry[kCap];
+  SLA_UNROLL
+  for (int k = 0; k < p; ++k) {
+    c[k] = coef[k];
+    carry[k] = 0;
+  }
+  const int n0 = start - p;
+  const int end = L - start < seg ? L : start + seg;
+  int32_t emph = n0 >= 1 ? x[n0 - 1] : 0;
+  for (int base = n0; base < end; base += kChunk) {
+    int32_t f[N][V];
+    for (int i = 0; i < N; ++i) load_lane(x, L, base + V * lanes.lane(i), f[i]);
+    lattice_chunk<P, EMPH, V>(lanes, f, c, carry, emph, p);
+    for (int i = 0; i < N; ++i) store_lane(y, start, end, base + V * lanes.lane(i), f[i]);
+  }
+}
 
 // Sum of t[0..count) as a balanced tree of wrapping adds, in place. N > 0
 // fixes the count at compile time (the loops unroll, t stays in registers).
@@ -210,26 +355,22 @@ struct Lms {
   }
 };
 
-// Long-term stage of one row. md = max_delay (pitch + T/2), 0 for a row
-// without the stage; q15 = Q31 coefficient >> 16. Active from n >= md.
-//   predict:    pred from the INPUT x[n - (md - j)]; a tap at or ahead of n
-//               reads x[n], as sla_tpu's clamped slice does
-//   synthesize: pred from the stage's own OUTPUT h[n - (md - j)], which the
-//               row writes to h as it goes; a tap at or ahead of n
-//               contributes 0, as sla_tpu's dropped scatter does
-template <int T, bool SYNTH>
+// Long-term synthesis of one row. md = max_delay (pitch + T/2), 0 for a row
+// without the stage; q15 = Q31 coefficient >> 16. Active from n >= md: pred
+// from the stage's own OUTPUT h[n - (md - j)], which the row writes to h as
+// it goes; a tap at or ahead of n contributes 0, as sla_tpu's dropped
+// scatter does. (The predict direction is longterm_fir below.)
+template <int T>
 struct Longterm {
   static constexpr int kCap = T > 0 ? T : kMaxTaps;
-  const int32_t* src;  // predict: the input; synthesize: h
-  int32_t* h;          // synthesize only: the stage's output history
+  int32_t* h;  // the stage's output history
   int64_t stride;
   int md;
   int nt;
   int32_t q[kCap];
 
-  SLA_HD Longterm(const int32_t* src_, int32_t* h_, int64_t stride_, int md_,
-                  const int32_t* q15, int nt_rt)
-      : src(src_), h(h_), stride(stride_), md(md_), nt(T > 0 ? T : nt_rt) {
+  SLA_HD Longterm(int32_t* h_, int64_t stride_, int md_, const int32_t* q15, int nt_rt)
+      : h(h_), stride(stride_), md(md_), nt(T > 0 ? T : nt_rt) {
     const int n = T > 0 ? T : nt;
     SLA_UNROLL
     for (int j = 0; j < n; ++j) q[j] = q15[j];
@@ -243,64 +384,19 @@ struct Longterm {
       SLA_UNROLL
       for (int j = 0; j < taps; ++j) {
         const int back = md - j;
-        if (SYNTH) {
-          if (back >= 1) acc += (int64_t)q[j] * src[(int64_t)(n - back) * stride];
-        } else {
-          const int lag = back > 0 ? back : 0;
-          acc += (int64_t)q[j] * src[(int64_t)(n - lag) * stride];
-        }
+        if (back >= 1) acc += (int64_t)q[j] * h[(int64_t)(n - back) * stride];
       }
-      const int32_t pred = wrap64((acc + (1 << 14)) >> 15);
-      out = SYNTH ? wadd(x, pred) : wsub(x, pred);
+      out = wadd(x, wrap64((acc + (1 << 14)) >> 15));
     }
-    if (SYNTH) h[(int64_t)n * stride] = out;
+    h[(int64_t)n * stride] = out;
     return out;
-  }
-};
-
-// K1: pre-emphasis (when EMPH) -> lattice predict
-template <int P, bool EMPH = true>
-struct Stage1 {
-  PreEmphasis pre;
-  Lattice<P, false> lattice;
-  SLA_HD Stage1(const int32_t* coef, int p) : lattice(coef, p) {}
-  SLA_HD int32_t operator()(int32_t x, int) { return lattice(EMPH ? pre(x) : x); }
-};
-
-// K4's second half: long-term FIR predict -> LMS predict
-template <int T, int M>
-struct Stage2 {
-  Longterm<T, false> longterm;
-  Lms<M, false> lms;
-  SLA_HD Stage2(const int32_t* x, int64_t stride, int md, const int32_t* q15,
-                int nt, int m)
-      : longterm(x, nullptr, stride, md, q15, nt), lms(m) {}
-  SLA_HD int32_t operator()(int32_t x, int n) { return lms(longterm(x, n)); }
-};
-
-// K4: K1's body then K2's in one sample loop. The long-term FIR reads the
-// stage-1 residual, which the row writes to the (L, B) scratch h before the
-// taps read it: a tap at or ahead of n reads h[n], this sample's residual.
-template <int P, int T, int M>
-struct FusedEncode {
-  Stage1<P> stage1;
-  int32_t* h;
-  int64_t stride;
-  Stage2<T, M> stage2;
-  SLA_HD FusedEncode(int32_t* h_, int64_t stride_, const int32_t* coef, int p, int md,
-                     const int32_t* q15, int nt, int m)
-      : stage1(coef, p), h(h_), stride(stride_), stage2(h_, stride_, md, q15, nt, m) {}
-  SLA_HD int32_t operator()(int32_t x, int n) {
-    const int32_t r1 = stage1(x, n);
-    h[(int64_t)n * stride] = r1;
-    return stage2(r1, n);
   }
 };
 
 // K5: lattice synthesize -> de-emphasis (when EMPH)
 template <int P, bool EMPH>
 struct LatticeSynth {
-  Lattice<P, true> lattice;
+  Lattice<P> lattice;
   DeEmphasis de;
   SLA_HD LatticeSynth(const int32_t* coef, int p) : lattice(coef, p) {}
   SLA_HD int32_t operator()(int32_t x, int) {
@@ -322,9 +418,9 @@ using LmsSynth = LmsStep<M, true>;
 // K7: long-term synthesize alone, over its own output history h
 template <int T>
 struct LongtermSynth {
-  Longterm<T, true> longterm;
+  Longterm<T> longterm;
   SLA_HD LongtermSynth(int32_t* h, int64_t stride, int md, const int32_t* q15, int nt)
-      : longterm(h, h, stride, md, q15, nt) {}
+      : longterm(h, stride, md, q15, nt) {}
   SLA_HD int32_t operator()(int32_t x, int n) { return longterm(x, n); }
 };
 
@@ -346,18 +442,19 @@ SLA_HD void run_row(Step& step, const int32_t* x, int32_t* y, int64_t stride, in
   }
 }
 
-// -- K2 and K3 as pipelines over tiles --------------------------------------
+// -- K2, K3 and K4 as pipelines over tiles -----------------------------------
 //
-// A block holds kGroup rows (one per lane) and walks their samples in tiles
-// of kTile. Stages that do not feed an earlier stage run on different warps
-// and hand tiles to each other through shared memory; the tile each role
-// works on at iteration `it` is fixed by its lag below, and every role
-// meets the others at one barrier per iteration. The structs here hold the
-// shared-memory layout and the per-tile work; the same code runs in the
-// CUDA kernels (filters.cu, a warp per role, concurrently) and in the host
-// build (filters_host.cpp, role after role), so the CPU tests exercise tile
-// edges, ring wrap-around and the slot arithmetic. Only the hand-off
-// (cp.async, the barrier) is card-only.
+// A block holds kGroup rows and walks their samples in tiles of kTile; a
+// sequential stage runs one row per lane, a sample-parallel one (the FIR,
+// K4's stage 1) lanes over samples. Stages that do not feed an earlier
+// stage run on different warps and hand tiles to each other through shared
+// memory; the tile each role works on at iteration `it` is fixed by its lag
+// below, and every role meets the others at one barrier per iteration. The
+// structs here hold the shared-memory layout and the per-tile work; the
+// same code runs in the CUDA kernels (filters.cu, one or more warps per
+// role, concurrently) and in the host build (filters_host.cpp, role after
+// role), so the CPU tests exercise tile edges, ring wrap-around and the
+// slot arithmetic. Only the hand-off (cp.async, the barrier) is card-only.
 
 constexpr int kGroup = 32;                        // rows per block
 constexpr int kTile = 64;                         // samples per tile
@@ -389,7 +486,7 @@ struct Tiled : Step {
 // K3's long-term synthesis over one row, its output history in a ring of
 // kRing slots (sample n at n & kRingMask) in shared memory, not in device
 // memory. Active from n >= md; a tap at or ahead of n contributes 0, as in
-// Longterm<T, true>.
+// Longterm<T>.
 template <int T>
 struct LongtermSynthRing {
   static constexpr int kCap = T > 0 ? T : kMaxTaps;
@@ -449,9 +546,10 @@ struct LongtermSynthRing {
   }
 };
 
-// K2's long-term FIR residual at sample n of one row, from the row's INPUT
-// ring: a tap at or ahead of n reads x[n], as Longterm<T, false> does. It
-// reads only the input, so every sample of a tile can be computed at once.
+// K2's and K4's long-term FIR residual at sample n of one row, from the
+// row's INPUT ring: pred from x[n - (md - j)], active from n >= md; a tap at
+// or ahead of n reads x[n], as sla_tpu's clamped slice does. It reads only
+// the input, so every sample of a tile can be computed at once.
 template <int T>
 SLA_HD int32_t longterm_fir(const int32_t* h, int md, const int32_t* q, int nt, int n) {
   const int32_t x = h[n & kRingMask];
@@ -518,32 +616,28 @@ struct SynthPipe {
   SLA_HD void lattice(Step& s, int it, int r) const { stage(s, it, kLattice, b, 2, o, r); }
 };
 
-// K2's pipeline. Iteration `it`:
-//   the producer loads tile it into the input ring (row r, sample n at
-//   ring[r][n & kRingMask])
+// The long-term FIR and LMS predict roles of K2 and K4, over a per-row ring
+// of the stage-2 input (row r, sample n at ring[r][n & kRingMask]). Iteration
+// `it`:
 //   the FIR threads compute tile it - kFir:  ring -> res, sample-parallel
 //   LMS predict                tile it - kLms:  res  -> o
 //   the producer stores tile it - kStore from o.
-// The ring holds the kMaxDelay samples before the FIR's tile, that tile,
-// and the tiles the producer has loaded ahead of it.
-struct Stage2Pipe {
-  static constexpr int kFir = 2, kLms = 3, kStore = 4;
+// What fills the ring, kFirLag iterations ahead of the FIR, is the pipeline's
+// own: K2's producer, K4's stage-1 role.
+template <int kFirLag>
+struct FirLms {
+  static constexpr int kFir = kFirLag, kLms = kFirLag + 1, kStore = kFirLag + 2;
   static constexpr int kWords = kRingWords + 2 * 2 * kTileWords;
-  static_assert(kMaxDelay + (kFir + 1) * kTile <= kRing,
-                "the producer would overwrite history the FIR still reads");
   int32_t* ring;
   int32_t* res;
   int32_t* o;
   int L, ntiles;
 
-  SLA_HD Stage2Pipe(int32_t* smem, int L_)
+  SLA_HD FirLms(int32_t* smem, int L_)
       : ring(smem), res(ring + kRingWords), o(res + 2 * kTileWords), L(L_),
         ntiles((L_ + kTile - 1) / kTile) {}
 
   SLA_HD int iterations() const { return ntiles + kStore; }
-  SLA_HD int32_t* load_dst(int t, int r, int j) const {
-    return ring + r * kRingPitch + ((t * kTile + j) & kRingMask);
-  }
   SLA_HD const int32_t* store_src(int t, int r, int j) const {
     return o + (t % 2) * kTileWords + r * kTilePitch + j;
   }
@@ -564,6 +658,93 @@ struct Stage2Pipe {
     if (t < 0 || t >= ntiles) return;
     s.tile(res + (t % 2) * kTileWords + r * kTilePitch,
            o + (t % 2) * kTileWords + r * kTilePitch, t * kTile, tile_count(t, L));
+  }
+};
+
+// K2's pipeline: the producer loads tile it straight into the ring. The
+// ring holds the kMaxDelay samples before the FIR's tile, that tile, and
+// the tiles the producer has loaded ahead of it.
+struct Stage2Pipe : FirLms<2> {
+  static_assert(kMaxDelay + (kFir + 1) * kTile <= kRing,
+                "the producer would overwrite history the FIR still reads");
+  SLA_HD Stage2Pipe(int32_t* smem, int L_) : FirLms<2>(smem, L_) {}
+  SLA_HD int32_t* load_dst(int t, int r, int j) const {
+    return ring + r * kRingPitch + ((t * kTile + j) & kRingMask);
+  }
+};
+
+// K4's pipeline: K2's with stage 1 ahead of the FIR. Iteration `it`:
+//   the producer loads tile it of x into xin[it % kInSlots]
+//   stage 1 (pre-emphasis + lattice predict) tile it - kStage1: xin -> ring
+//   the FIR, LMS predict and the producer's store as in FirLms<3>.
+// The loads land one iteration after they are issued, so stage 1 reads a
+// tile two iterations after its load (three slots: one loading, one landed,
+// one read). The ring holds the kMaxDelay samples before the FIR's tile,
+// that tile, and the tile stage 1 writes ahead of it. Stage 1 runs K1's
+// lane schedule (lattice_chunk) on one row's tile at a time, 32 lanes x 2
+// samples; each row's b_k carries and pre-emphasis seed stay in shared
+// memory from one tile to the next, so no tile needs a warm-up.
+struct EncodePipe : FirLms<3> {
+  static constexpr int kInSlots = 3, kStage1 = 2;
+  static constexpr int kLaneTile = kTile / 32;        // stage 1: samples per lane
+  static constexpr int kCarryPitch = kMaxParcor + 1;  // b_0 .. b_{p-1} carries, the seed
+  static constexpr int kWords = kInSlots * kTileWords + FirLms<3>::kWords + kGroup * kCarryPitch;
+  static_assert(kMaxDelay + (kFir - kStage1 + 1) * kTile <= kRing,
+                "stage 1 would overwrite history the FIR still reads");
+  int32_t* xin;
+  int32_t* carry;
+
+  SLA_HD EncodePipe(int32_t* smem, int L_)
+      : FirLms<3>(smem + kInSlots * kTileWords, L_), xin(smem),
+        carry(smem + kInSlots * kTileWords + FirLms<3>::kWords) {}
+
+  SLA_HD int32_t* load_dst(int t, int r, int j) const {
+    return xin + (t % kInSlots) * kTileWords + r * kTilePitch + j;
+  }
+  // zero state for row r: words j0, j0 + step, ... of its carries
+  SLA_HD void clear(int r, int j0, int step) const {
+    for (int j = j0; j < kCarryPitch; j += step) carry[r * kCarryPitch + j] = 0;
+  }
+
+  // stage 1 of row r (coefficients coef) on the tile lagging kStage1
+  template <int P, class Lanes>
+  SLA_HD void stage1(const Lanes& lanes, int it, int r, const int32_t* coef, int p_rt) const {
+    const int t = it - kStage1;
+    if (t < 0 || t >= ntiles) return;
+    constexpr int N = Lanes::kCount, V = kLaneTile, kCap = P > 0 ? P : kMaxParcor;
+    const int p = P > 0 ? P : p_rt;
+    const int count = tile_count(t, L);
+    const int32_t* src = xin + (t % kInSlots) * kTileWords + r * kTilePitch;
+    int32_t* keep = carry + r * kCarryPitch;
+    int32_t f[N][V];
+    for (int i = 0; i < N; ++i) {
+      SLA_UNROLL
+      for (int j = 0; j < V; ++j) {
+        const int s = V * lanes.lane(i) + j;
+        f[i][j] = s < count ? src[s] : 0;
+      }
+    }
+    int32_t c[kCap], b[kCap];
+    SLA_UNROLL
+    for (int k = 0; k < p; ++k) {
+      c[k] = coef[k];
+      b[k] = keep[k];
+    }
+    int32_t emph = keep[kMaxParcor];
+    lattice_chunk<P, true, V>(lanes, f, c, b, emph, p);
+    if (lanes.lane(0) == 0) {
+      SLA_UNROLL
+      for (int k = 0; k < p; ++k) keep[k] = b[k];
+      keep[kMaxParcor] = emph;
+    }
+    int32_t* dst = ring + r * kRingPitch;
+    for (int i = 0; i < N; ++i) {
+      SLA_UNROLL
+      for (int j = 0; j < V; ++j) {
+        const int s = V * lanes.lane(i) + j;
+        if (s < count) dst[(t * kTile + s) & kRingMask] = f[i][j];
+      }
+    }
   }
 };
 

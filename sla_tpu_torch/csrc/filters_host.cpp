@@ -1,13 +1,17 @@
 // Host build of the kernels' bodies (filters.cuh), for the tests only:
 // g++ -fwrapv compiles it on a machine without a card, and the tests hold
-// each body against the plain PyTorch version. Same layout and parameters
-// as the C entries of filters.cu ((L, B) for K1 and K4-K7, (B, L) for K2
-// and K3); `fixed` selects the compile-time-order instantiation the kernel
-// would take for these orders (when one exists) instead of the run-time
-// one. K2 and K3 run their kernels' tile schedule (Stage2Pipe, SynthPipe)
-// one row group at a time, each iteration's roles one after another in
-// pipeline order, so a slot that two roles share in one iteration gives a
-// wrong tile here.
+// each body against the plain PyTorch version. Same parameters as the C
+// entries of filters.cu, in the same layouts ((B, L) rows for K1-K4, the
+// sample-major (L, B) for K5-K7); `fixed` selects the compile-time-order
+// instantiation the kernel would take for these orders (when one exists)
+// instead of the run-time one. K1 runs its kernel's lane schedule: each
+// segment's chunks through sla::HostLanes, which holds a warp's 32 lanes
+// and does its shuffles. K2-K4 run their kernels' tile schedule
+// (Stage2Pipe, SynthPipe, EncodePipe) one row group at a time, each
+// iteration's roles one after another in pipeline order, so a slot that two
+// roles share in one iteration gives a wrong tile here; K4 can also run
+// them in reverse order, so a tile read in the iteration that writes it
+// gives a wrong tile too.
 #include <stdint.h>
 
 #include <algorithm>
@@ -33,12 +37,6 @@ struct Args {
   const int32_t* q15;
   int B, p, nt, m;
 };
-
-template <int P, bool EMPH>
-sla::Stage1<P, EMPH> make_stage1(int row, void* ctx) {
-  const Args& a = *(const Args*)ctx;
-  return sla::Stage1<P, EMPH>(a.coef + (int64_t)row * a.p, a.p);
-}
 
 // The producer's part of iteration `it`, done at once: copy tile it in
 // (store() copies tile it - kStore out, after the stages).
@@ -108,16 +106,60 @@ void synth_pipe(const int32_t* x, int32_t* y, const int32_t* coef, const int32_t
   }
 }
 
+// K1's kernel, one warp (row, segment of seg outputs) after another; (B, L)
+// rows
+template <int P, bool EMPH>
+void lattice_segments(const int32_t* x, int32_t* y, const int32_t* coef, int B, int L, int p,
+                      int seg) {
+  for (int64_t row = 0; row < B; ++row)
+    for (int start = 0; start < L; start += seg)
+      sla::lattice_segment<P, EMPH>(sla::HostLanes(), x + row * L, y + row * L, L, start, seg,
+                                    coef + row * p, p);
+}
+
+// K4's kernel, one row group after another; (B, L) rows
+template <int P, int T, int M>
+void encode_pipe(const int32_t* x, int32_t* y, const int32_t* coef, const int32_t* md,
+                 const int32_t* q15, int B, int L, int p, int nt, int m, bool reverse) {
+  std::vector<int32_t> smem(sla::EncodePipe::kWords);
+  const sla::HostLanes lanes;
+  for (int row0 = 0; row0 < B; row0 += sla::kGroup) {
+    const int rows = std::min(sla::kGroup, B - row0);
+    const sla::EncodePipe pipe(smem.data(), L);
+    std::vector<sla::Tiled<sla::LmsStep<M, false>>> lms(rows, sla::Tiled<sla::LmsStep<M, false>>(m));
+    for (int r = 0; r < rows; ++r) pipe.clear(r, 0, 1);
+    for (int it = 0; it < pipe.iterations(); ++it) {
+      const auto stage1 = [&] {
+        for (int r = 0; r < rows; ++r)
+          pipe.stage1<P>(lanes, it, r, coef + (int64_t)(row0 + r) * p, p);
+      };
+      const auto fir = [&] {
+        for (int r = 0; r < rows; ++r)
+          pipe.fir<T>(it, r, 0, 1, md[row0 + r], q15 + (int64_t)(row0 + r) * nt, nt);
+      };
+      const auto lms_role = [&] {
+        for (int r = 0; r < rows; ++r) pipe.lms(lms[r], it, r);
+      };
+      if (!reverse) {
+        produce(pipe, it, x, row0, rows);
+        stage1();
+        fir();
+        lms_role();
+        store(pipe, it, y, row0, rows);
+      } else {
+        store(pipe, it, y, row0, rows);
+        lms_role();
+        fir();
+        stage1();
+        produce(pipe, it, x, row0, rows);
+      }
+    }
+  }
+}
+
 template <int M, bool SYNTH, bool TREE>
 sla::LmsStep<M, SYNTH, TREE> make_lms(int, void* ctx) {
   return sla::LmsStep<M, SYNTH, TREE>(((const Args*)ctx)->m);
-}
-
-template <int P, int T, int M>
-sla::FusedEncode<P, T, M> make_fused_encode(int row, void* ctx) {
-  const Args& a = *(const Args*)ctx;
-  return sla::FusedEncode<P, T, M>(a.h + row, a.B, a.coef + (int64_t)row * a.p, a.p, a.md[row],
-                                   a.q15 + (int64_t)row * a.nt, a.nt, a.m);
 }
 
 template <int P, bool EMPH>
@@ -136,14 +178,15 @@ sla::LongtermSynth<T> make_longterm_synth(int row, void* ctx) {
 
 extern "C" {
 
+// K1 in segments of `seg` outputs; seg 0 takes the kernel's own length
 void sla_host_lattice_predict(const int32_t* x, int32_t* y, const int32_t* coef, int B, int L,
-                              int p, int emphasis, int fixed) {
-  Args a{x, nullptr, coef, nullptr, nullptr, B, p, 0, 0};
-  if (!emphasis) return run_rows(B, L, x, y, make_stage1<0, false>, &a);
-  if (fixed && p == 8) return run_rows(B, L, x, y, make_stage1<8, true>, &a);
-  if (fixed && p == 16) return run_rows(B, L, x, y, make_stage1<16, true>, &a);
-  if (fixed && p == 32) return run_rows(B, L, x, y, make_stage1<32, true>, &a);
-  run_rows(B, L, x, y, make_stage1<0, true>, &a);
+                              int p, int emphasis, int fixed, int seg) {
+  if (seg <= 0) seg = sla::segment_length(p);
+  if (!emphasis) return lattice_segments<0, false>(x, y, coef, B, L, p, seg);
+  if (fixed && p == 8) return lattice_segments<8, true>(x, y, coef, B, L, p, seg);
+  if (fixed && p == 16) return lattice_segments<16, true>(x, y, coef, B, L, p, seg);
+  if (fixed && p == 32) return lattice_segments<32, true>(x, y, coef, B, L, p, seg);
+  lattice_segments<0, true>(x, y, coef, B, L, p, seg);
 }
 
 void sla_host_lattice_synth(const int32_t* x, int32_t* y, const int32_t* coef, int B, int L,
@@ -194,15 +237,19 @@ void sla_host_lms(const int32_t* x, int32_t* y, int B, int L, int m, int synth, 
        : run_rows(B, L, x, y, make_lms<0, false, false>, &a);
 }
 
-void sla_host_fused_encode(const int32_t* x, int32_t* y, int32_t* h, const int32_t* coef,
-                           const int32_t* md, const int32_t* q15, int B, int L, int p, int nt,
-                           int m, int fixed) {
-  Args a{x, h, coef, md, q15, B, p, nt, m};
-  if (fixed && p == 8 && nt == 1 && m == 4) return run_rows(B, L, x, y, make_fused_encode<8, 1, 4>, &a);
-  if (fixed && p == 8 && nt == 1 && m == 8) return run_rows(B, L, x, y, make_fused_encode<8, 1, 8>, &a);
-  if (fixed && p == 16 && nt == 1 && m == 8) return run_rows(B, L, x, y, make_fused_encode<16, 1, 8>, &a);
-  if (fixed && p == 32 && nt == 3 && m == 8) return run_rows(B, L, x, y, make_fused_encode<32, 3, 8>, &a);
-  run_rows(B, L, x, y, make_fused_encode<0, 0, 0>, &a);
+// K4; reverse: run each iteration's roles in reverse pipeline order
+void sla_host_fused_encode(const int32_t* x, int32_t* y, const int32_t* coef, const int32_t* md,
+                           const int32_t* q15, int B, int L, int p, int nt, int m, int fixed,
+                           int reverse) {
+  if (fixed && p == 8 && nt == 1 && m == 4)
+    return encode_pipe<8, 1, 4>(x, y, coef, md, q15, B, L, p, nt, m, reverse);
+  if (fixed && p == 8 && nt == 1 && m == 8)
+    return encode_pipe<8, 1, 8>(x, y, coef, md, q15, B, L, p, nt, m, reverse);
+  if (fixed && p == 16 && nt == 1 && m == 8)
+    return encode_pipe<16, 1, 8>(x, y, coef, md, q15, B, L, p, nt, m, reverse);
+  if (fixed && p == 32 && nt == 3 && m == 8)
+    return encode_pipe<32, 3, 8>(x, y, coef, md, q15, B, L, p, nt, m, reverse);
+  encode_pipe<0, 0, 0>(x, y, coef, md, q15, B, L, p, nt, m, reverse);
 }
 
 void sla_host_lms_synth(const int32_t* x, int32_t* y, int B, int L, int m, int fixed) {

@@ -3,8 +3,8 @@
 `cuda_library()` compiles `csrc/filters.cu` with nvcc for sm_90a into a
 shared library with a plain C interface and loads it with ctypes (no
 PyTorch headers, so the build takes seconds). `host_library()` compiles the
-same per-row bodies for the CPU with g++ (`csrc/filters_host.cpp`); only the
-tests use it, and nothing on the encode or decode path calls it.
+same bodies and schedules for the CPU with g++ (`csrc/filters_host.cpp`);
+only the tests use it, and nothing on the encode or decode path calls it.
 
 Both build into `build/sla_tpu_torch/` beside the package, keyed by a hash
 of the sources and the command, under a file lock, so concurrent test
@@ -123,7 +123,7 @@ def cuda_library() -> ctypes.CDLL:
             "sla_lattice_predict": [vp, vp, vp, i, i, i, i, vp],
             "sla_stage2_predict": [vp, vp, vp, vp, i, i, i, i, vp],
             "sla_synth_cascade": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],
-            "sla_fused_encode": [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp],
+            "sla_fused_encode": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],
             "sla_lattice_synth": [vp, vp, vp, i, i, i, i, vp],
             "sla_lms_synth": [vp, vp, i, i, i, vp],
             "sla_longterm_synth": [vp, vp, vp, vp, vp, i, i, i, vp],
@@ -138,7 +138,7 @@ def cuda_library() -> ctypes.CDLL:
 
 
 def host_library() -> ctypes.CDLL:
-    """The kernels' per-row bodies built for the CPU (tests only)."""
+    """The kernels' bodies and schedules built for the CPU (tests only)."""
 
     def build():
         return build_library(
@@ -148,12 +148,14 @@ def host_library() -> ctypes.CDLL:
 
     def bind(lib):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        sigs = {  # the CUDA entries' arguments with `fixed` in place of the stream
-            "sla_host_lattice_predict": [vp, vp, vp, i, i, i, i, i],
+        # the CUDA entries' arguments with `fixed` in place of the stream, and
+        # K1's segment length and K4's role order after it
+        sigs = {
+            "sla_host_lattice_predict": [vp, vp, vp, i, i, i, i, i, i],
             "sla_host_stage2_predict": [vp, vp, vp, vp, i, i, i, i, i],
             "sla_host_synth_cascade": [vp, vp, vp, vp, vp, i, i, i, i, i, i],
             "sla_host_lms": [vp, vp, i, i, i, i, i, i],
-            "sla_host_fused_encode": [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i],
+            "sla_host_fused_encode": [vp, vp, vp, vp, vp, i, i, i, i, i, i, i],
             "sla_host_lattice_synth": [vp, vp, vp, i, i, i, i, i],
             "sla_host_lms_synth": [vp, vp, i, i, i, i],
             "sla_host_longterm_synth": [vp, vp, vp, vp, vp, i, i, i, i],

@@ -18,9 +18,9 @@ fused_stage2_wide_tl, fused_synth_tl / fused_synth_wide_tl, fused_encode_tl
 its synthesize direction) and longterm_synth_tl.
 
 Every wrapper takes (B, L) int32 rows, each filtered from zero state (the
-format resets the filters at block start), and returns (B, L) int32. K2
-and K3 read and write the rows as they are; the others run on the
-sample-major (L, B) layout, between two transposes. The long-term
+format resets the filters at block start), and returns (B, L) int32. K1-K4
+read and write the rows as they are; K5-K7 run on the sample-major (L, B)
+layout, between two transposes. The long-term
 parameters are in the kernels' layout: md (B,) int32 = pitch + T//2 (at
 most 258), 0 for a row without the stage, and q15 (B, T) int32 = Q31
 coefficient >> 16 (sla_tpu_torch/params.py makes them).
@@ -149,7 +149,7 @@ def _check(data: torch.Tensor, coef=None, md=None, q15=None, lms_order: int = 0)
 
 
 def _launch(name: str, fn, data: torch.Tensor, *args) -> torch.Tensor:
-    """Transposes rows to the kernels' (L, B) layout, launches `fn` on the
+    """Transposes rows to K5-K7's (L, B) layout, launches `fn` on the
     current stream and transposes the result back."""
     with torch.cuda.device(data.device):
         x_t = data.t().contiguous()
@@ -188,8 +188,8 @@ def lattice_predict(
     if data.device.type == "cpu":
         return lattice_predict_plain(data, coef, emphasis)
     B, L = data.shape
-    return _launch("lattice_predict", "sla_lattice_predict", data,
-                   coef.contiguous(), B, L, coef.shape[1], int(emphasis))
+    return _launch_rows("lattice_predict", "sla_lattice_predict", data,
+                        coef.contiguous(), B, L, coef.shape[1], int(emphasis))
 
 
 def stage2_predict(
@@ -235,11 +235,9 @@ def fused_encode(
     if data.device.type == "cpu":
         return fused_encode_plain(data, coef, md, q15, lms_order)
     B, L = data.shape
-    # the stage-1 residual's history, (L, B) like the data
-    hist = torch.empty((L, B), dtype=torch.int32, device=data.device)
-    return _launch("fused_encode", "sla_fused_encode", data,
-                   hist, coef.contiguous(), md.contiguous(), q15.contiguous(),
-                   B, L, coef.shape[1], q15.shape[1], lms_order)
+    return _launch_rows("fused_encode", "sla_fused_encode", data,
+                        coef.contiguous(), md.contiguous(), q15.contiguous(),
+                        B, L, coef.shape[1], q15.shape[1], lms_order)
 
 
 def lattice_synth(

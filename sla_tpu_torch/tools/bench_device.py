@@ -13,8 +13,8 @@ Cells, at B rows x 12,288 samples (B 256 and 2,048), p 16, T 1, M 8:
 
 The samples and coefficients are drawn on the card from a seeded
 torch.Generator; the pitches come from numpy. Each cell calls the kernel
-wrappers as the pipeline does, so the time includes their (B, L) <-> (L, B)
-transposes, as the JAX tool's did. Before timing, each batch must give
+wrappers as the pipeline does; K1-K4 read and write the (B, L) rows as they
+are, so no cell times a transpose. Before timing, each batch must give
 encode_fused == encode_stage12 exactly and decode_fused(encode_fused(x))
 == x (every tap lies behind n at these pitches, so the cascade inverts).
 

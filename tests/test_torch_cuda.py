@@ -1,7 +1,9 @@
 """The seven CUDA kernels on the card against their plain PyTorch versions
-on the same card, the fused encode against the two-stage form, and the
-encode/decode slice on the card against the host backend. Needs an NVIDIA GPU with nvcc (the kernels build at first use);
-elsewhere every test skips. Run them on a machine with a card:
+on the same card (K1-K4 also on ragged and misaligned rows), the fused
+encode against the two-stage form, and the encode/decode slice on the card
+against the host backend. Needs an NVIDIA GPU with nvcc (the kernels build
+at first use); elsewhere every test skips. Run them on a machine with a
+card:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
@@ -89,6 +91,36 @@ def test_pipelines_on_ragged_tiles_on_card(dev, B, L, p, T, M):
     torch.cuda.synchronize()
     assert torch.equal(k2, cuda_filters.stage2_predict_plain(x, md, q15, M))
     assert torch.equal(k3, cuda_filters.synth_cascade_plain(x, coef, md, q15, M))
+
+
+def _misaligned(t):
+    """t's values in a tensor whose data starts 4 bytes past an aligned
+    address, so no row is aligned for 16-byte loads."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("B,L", [(1, 1), (33, 37), (70, 65), (40, 1300), (3, 3001), (5, 2021)])
+@pytest.mark.parametrize("p,T,M", [(16, 1, 8), (32, 3, 8), (8, 1, 4), (48, 5, 40), (0, 0, 0)])
+def test_stencil_and_encode_pipeline_on_ragged_shapes_on_card(dev, B, L, p, T, M):
+    """K1 (a warp per segment of 1,024 - p outputs, lanes over samples) and
+    K4 (the encode pipeline) where rows, chunks, segments and tiles do not
+    divide evenly (L 3,001 and 2,021 end in a ragged segment), with delays
+    up to 258, on rows as allocated and rows misaligned for 16-byte loads;
+    K1 also without pre-emphasis (p 0 and 48 take the run-time order)."""
+    x, coef, md, q15 = _inputs(dev, B * 3 + L + p, B, L, p, T)
+    if T:
+        md[: min(B, 4)] = torch.tensor([1, 256, 257, 258], dtype=torch.int32, device=dev)[: min(B, 4)]
+    for rows in (x, _misaligned(x)):
+        k1 = cuda_filters.lattice_predict(rows, coef)
+        k1_plain_rows = cuda_filters.lattice_predict(rows, coef, False)
+        k4 = cuda_filters.fused_encode(rows, coef, md, q15, M)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, cuda_filters.lattice_predict_plain(x, coef))
+        assert torch.equal(k1_plain_rows, cuda_filters.lattice_predict_plain(x, coef, False))
+        assert torch.equal(k4, cuda_filters.fused_encode_plain(x, coef, md, q15, M))
 
 
 def test_encode_filters_fused_on_card_matches_stages(dev):

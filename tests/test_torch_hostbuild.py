@@ -1,9 +1,12 @@
-"""The CUDA kernels' per-row bodies (csrc/filters.cuh), built for the CPU
-with g++ -fwrapv, against the plain PyTorch versions: the kernels'
+"""The CUDA kernels' bodies and schedules (csrc/filters.cuh), built for the
+CPU with g++ -fwrapv, against the plain PyTorch versions: the kernels'
 arithmetic checked without a card. Both the compile-time-order
-instantiations the presets take and the run-time-order one are run.
+instantiations the presets take and the run-time-order one are run. K1
+runs its lane schedule (32 lanes, their shuffles, chunk carries and
+segment warm-ups), K2-K4 their tile pipelines.
 Exact comparisons (integer codec, tolerance 0)."""
 
+import functools
 import shutil
 
 import numpy as np
@@ -22,10 +25,14 @@ def lib():
     return build.host_library()
 
 
+ROW_ENTRIES = ("sla_host_lattice_predict", "sla_host_stage2_predict", "sla_host_synth_cascade",
+               "sla_host_fused_encode")
+
+
 def _call(lib, fn, x, *args):
-    """Runs a host entry on (B, L) rows: K2 and K3 take them as they are,
-    the others in the (L, B) layout."""
-    rows = fn in ("sla_host_stage2_predict", "sla_host_synth_cascade")
+    """Runs a host entry on (B, L) rows: K1-K4 take them as they are, the
+    others in the (L, B) layout."""
+    rows = fn in ROW_ENTRIES
     x_in = np.ascontiguousarray(x if rows else x.T)
     y = np.empty_like(x_in)
     keep = [np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a for a in args]
@@ -64,7 +71,7 @@ def test_row_bodies_match_plain(lib, p, T, M, fixed, full_range):
     x, coef, md, q15 = _inputs(p * 100 + T * 10 + M, B, L, p, T, full_range)
     X, C, MD, Q = (torch.from_numpy(a) for a in (x, coef, md, q15))
 
-    k1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, 1, fixed)
+    k1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, 1, fixed, 0)
     assert np.array_equal(k1, cuda_filters.lattice_predict_plain(X, C).numpy())
 
     k2 = _call(lib, "sla_host_stage2_predict", x, md, q15, B, L, T, M, fixed)
@@ -84,14 +91,13 @@ def test_known_parameter_bodies_match_plain(lib, p, T, M, fixed, full_range):
     x, coef, md, q15 = _inputs(p * 100 + T * 10 + M + 1, B, L, p, T, full_range)
     X, C, MD, Q = (torch.from_numpy(a) for a in (x, coef, md, q15))
 
-    hist = np.zeros((L, B), np.int32)
-    k4 = _call(lib, "sla_host_fused_encode", x, hist, coef, md, q15, B, L, p, T, M, fixed)
+    k4 = _call(lib, "sla_host_fused_encode", x, coef, md, q15, B, L, p, T, M, fixed, 0)
     assert np.array_equal(k4, cuda_filters.fused_encode_plain(X, C, MD, Q, M).numpy())
 
     for emphasis in (1, 0):
         k5 = _call(lib, "sla_host_lattice_synth", x, coef, B, L, p, emphasis, fixed)
         assert np.array_equal(k5, cuda_filters.lattice_synth_plain(X, C, bool(emphasis)).numpy())
-    k1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, 0, fixed)
+    k1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, 0, fixed, 0)
     assert np.array_equal(k1, cuda_filters.lattice_predict_plain(X, C, False).numpy())
 
     k6 = _call(lib, "sla_host_lms_synth", x, B, L, M, fixed)
@@ -113,15 +119,14 @@ def test_split_bodies_round_trip(lib):
     md = np.where(pitch > 0, pitch + T // 2, 0).astype(np.int32)
     no_md, no_q = np.zeros(B, np.int32), np.zeros((B, 0), np.int32)
     for emphasis in (1, 0):
-        r = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, emphasis, 1)
+        r = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, emphasis, 1, 0)
         assert np.array_equal(_call(lib, "sla_host_lattice_synth", r, coef, B, L, p, emphasis, 1), x)
     r = _call(lib, "sla_host_stage2_predict", x, no_md, no_q, B, L, 0, M, 1)
     assert np.array_equal(_call(lib, "sla_host_lms_synth", r, B, L, M, 1), x)
     r = _call(lib, "sla_host_stage2_predict", x, md, q15, B, L, T, 0, 1)
     hist = np.zeros((L, B), np.int32)
     assert np.array_equal(_call(lib, "sla_host_longterm_synth", r, hist, md, q15, B, L, T, 1), x)
-    hist = np.zeros((L, B), np.int32)
-    r = _call(lib, "sla_host_fused_encode", x, hist, coef, md, q15, B, L, p, T, M, 1)
+    r = _call(lib, "sla_host_fused_encode", x, coef, md, q15, B, L, p, T, M, 1, 0)
     out = _call(lib, "sla_host_synth_cascade", r, coef, md, q15, B, L, p, T, M, 1)
     assert np.array_equal(out, x)
 
@@ -134,7 +139,7 @@ def test_row_bodies_round_trip(lib):
     pitch = rng.integers(T // 2 + 1, 257, B)
     pitch[::3] = 0
     md = np.where(pitch > 0, pitch + T // 2, 0).astype(np.int32)
-    r1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, 1, 1)
+    r1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, 1, 1, 0)
     r2 = _call(lib, "sla_host_stage2_predict", r1, md, q15, B, L, T, M, 1)
     out = _call(lib, "sla_host_synth_cascade", r2, coef, md, q15, B, L, p, T, M, 1)
     assert np.array_equal(out, x)
@@ -189,3 +194,52 @@ def test_tree_summed_lms_matches_serial(lib, M, synth, fixed):
              lambda d, m: cuda_filters.stage2_predict_plain(
                  d, torch.zeros(B, dtype=torch.int32), torch.zeros((B, 0), dtype=torch.int32), m))
     assert np.array_equal(tree, plain(torch.from_numpy(x), M).numpy())
+
+
+# -- K1 as a sample-parallel stencil (filters.cuh lattice_segment: a warp per
+# segment of a row, 32 lanes x 4 samples a chunk, a p-sample warm-up) -------
+
+STENCIL_ORDERS = [0, 1, 5, 8, 16, 32, 48]
+# B not a multiple of 32, L < p, L not a multiple of 4, one sample
+STENCIL_SHAPES = [(33, 700), (3, 30), (2, 1), (5, 131)]
+
+
+@pytest.mark.parametrize("seg", [64, 7, 0])  # 0: the kernel's own segment length
+@pytest.mark.parametrize("emphasis", [1, 0])
+@pytest.mark.parametrize("fixed", [1, 0])
+@pytest.mark.parametrize("p", STENCIL_ORDERS)
+def test_lattice_stencil_matches_plain(lib, p, fixed, emphasis, seg):
+    """K1's lane schedule across chunk and segment boundaries, on full-range
+    rows with INT32_MIN samples: short segments put many warm-ups in a row."""
+    for B, L in STENCIL_SHAPES:
+        x, coef, _, _ = _inputs(p * 31 + B + L + seg, B, L, p, 0, True)
+        k1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, emphasis, fixed, seg)
+        plain = cuda_filters.lattice_predict_plain(
+            torch.from_numpy(x), torch.from_numpy(coef), bool(emphasis))
+        assert np.array_equal(k1, plain.numpy()), (B, L)
+
+
+# -- K4 as a tile pipeline (filters.cuh EncodePipe: stage 1 on K1's lane
+# schedule into the ring, then K2's FIR and LMS roles) ----------------------
+
+ENCODE_ORDERS = [(16, 1, 8), (32, 3, 8), (8, 1, 4), (0, 0, 0), (48, 5, 40), (1, 5, 13), (5, 0, 8)]
+
+
+@functools.lru_cache(maxsize=None)
+def _encode_case(B, L, p, T, M):
+    x, coef, md, q15 = _tiled_inputs(B * 5 + L + p + T + M, B, L, p, T)
+    plain = cuda_filters.fused_encode_plain(*(torch.from_numpy(a) for a in (x, coef, md, q15)), M)
+    return x, coef, md, q15, plain.numpy()
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("fixed", [1, 0])
+@pytest.mark.parametrize("p,T,M", ENCODE_ORDERS)
+@pytest.mark.parametrize("B,L", TILED_SHAPES)
+def test_encode_pipeline_matches_plain(lib, B, L, p, T, M, fixed, reverse):
+    """Each iteration's roles in pipeline order, then in reverse: a slot
+    overwritten before it is read fails the first, a tile read in the
+    iteration that writes it the second."""
+    x, coef, md, q15, plain = _encode_case(B, L, p, T, M)
+    k4 = _call(lib, "sla_host_fused_encode", x, coef, md, q15, B, L, p, T, M, fixed, reverse)
+    assert np.array_equal(k4, plain)
