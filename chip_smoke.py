@@ -15,8 +15,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    at the main path's shape (2,048 rows x 12,288 samples, p 16, T 1, M 8)
    and at p 32, T 3, M 8, L 16,384; kernel and plain times by CUDA events,
    each kernel's bound (int32 operations or bytes, whichever takes longer
-   at the card's peak), and the fused encode (K4) against K1 + K2; K1-K4's
-   ptxas resources and the pipelines' shared memory, and K1-K4's times
+   at the card's peak), and the fused encode (K4) against K1 + K2; K6 and
+   K7 also timed raw (ctypes, without the wrappers' checks), and K7 again,
+   exact too, on rows whose lags are all 32 or more; every kernel's ptxas
+   resources and the shared memory of K2-K4, K6 and K7, and K1-K7's times
    beside the previous kernels' on the same inputs (previous, new, new,
    previous) when those were built;
 3. slice: five minutes of seeded CD stereo (44.1 kHz, 16 bit) at preset 2
@@ -95,7 +97,7 @@ def clocks() -> tuple[float, float]:
 
 def parent_library():
     """The previous kernels (build/parent_csrc/filters.cu, the sources of
-    the commit before K1's and K4's redesign) with their C signatures, or
+    the commit before K6's and K7's redesign) with their C signatures, or
     None when their sources are not there."""
     from sla_tpu_torch.kernels import build
 
@@ -109,10 +111,13 @@ def parent_library():
     lib = ctypes.CDLL(str(path))
     vp, i = ctypes.c_void_p, ctypes.c_int
     sigs = {
-        "sla_lattice_predict": [vp, vp, vp, i, i, i, i, vp],  # (L, B)
+        "sla_lattice_predict": [vp, vp, vp, i, i, i, i, vp],  # (B, L)
         "sla_stage2_predict": [vp, vp, vp, vp, i, i, i, i, vp],  # (B, L)
         "sla_synth_cascade": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],  # (B, L)
-        "sla_fused_encode": [vp, vp, vp, vp, vp, vp, i, i, i, i, i, vp],  # (L, B), hist
+        "sla_fused_encode": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],  # (B, L)
+        "sla_lattice_synth": [vp, vp, vp, i, i, i, i, vp],  # (L, B)
+        "sla_lms_synth": [vp, vp, i, i, i, vp],  # (L, B)
+        "sla_longterm_synth": [vp, vp, vp, vp, vp, i, i, i, vp],  # (L, B), hist
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -219,17 +224,19 @@ def bound(name, B, L, p, T, M, md, int32_per_s) -> tuple[float, str]:
 
 
 def pipe_resources(lib) -> None:
-    """K1-K4's ptxas registers, stack and spills per instantiation, and the
-    pipelines' (K2-K4) dynamic shared memory per block."""
+    """Every kernel's ptxas registers, stack and spills per instantiation,
+    the pipelines' (K2-K4, K6) dynamic shared memory per block and K7's
+    static rings."""
     from sla_tpu_torch.kernels import build
 
-    names = "lattice_predict|stage2_predict|synth_cascade|fused_encode"
+    names = ("lattice_predict|stage2_predict|synth_cascade|fused_encode|lattice_synth|"
+             "lms_synth|longterm_synth")
     current = None
     for ln in build.build_log().splitlines():
         m = re.search(rf"Compiling entry function '\S*?({names})_kernelI(\w*?)EEv", ln)
         if m:
             args = [("true" if v == "1" else "false") if kind == "b" else v
-                    for kind, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+                    for kind, v in re.findall(r"L([ib])(\d+)E", m.group(2) + "E")]
             current = f"{m.group(1)}<{','.join(args)}>"
         elif "Compiling entry function" in ln:
             current = None
@@ -237,57 +244,86 @@ def pipe_resources(lib) -> None:
             log("kernels", f"ptxas {current}: {ln.strip()}")
     log("kernels", f"dynamic shared memory per block: stage2_predict {lib.sla_pipe_shared_bytes(2)} B, "
         f"synth_cascade {lib.sla_pipe_shared_bytes(3)} B, "
-        f"fused_encode {lib.sla_pipe_shared_bytes(4)} B")
+        f"fused_encode {lib.sla_pipe_shared_bytes(4)} B, "
+        f"lms_synth {lib.sla_pipe_shared_bytes(6)} B; static: longterm_synth "
+        f"{lib.sla_pipe_shared_bytes(7)} B (four rows' rings)")
+
+
+def ctypes_call(lib, fn, data, *args, transpose: bool = False):
+    """fn of `lib` on `data` through ctypes alone, without the wrappers'
+    argument checks; transpose: the kernel takes the (L, B) layout, so the
+    rows are transposed in and out around it."""
+    x_in = data.t().contiguous() if transpose else data
+    y = torch.empty_like(x_in)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    err = getattr(lib, fn)(x_in.data_ptr(), y.data_ptr(), *ptrs,
+                           torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{fn}: cudaError {err}")
+    return y.t().contiguous() if transpose else y
+
+
+UNCHANGED = ("lattice_predict", "stage2_predict", "synth_cascade", "fused_encode", "lattice_synth")
 
 
 def parent_times(parent, x, coef, md, q15, r1, M, reps: int = 5) -> dict:
-    """The previous K1-K4 against the new ones on the same inputs, in the
+    """The previous K1-K7 against the new ones on the same inputs, in the
     order previous, new, new, previous; both must give the same rows. Both
     are called through ctypes alone, without the wrappers' argument checks.
-    The previous K1 and K4 ran one thread per row over (L, B), so their times
-    include the two transposes and K4's (L, B) history scratch that their
-    wrapper added; the previous K2 and K3 already took the (B, L) rows."""
+    K1-K4 take the (B, L) rows on both sides, and K5 the (L, B) layout,
+    made once beforehand: these five did not change, so their ratio must
+    read 1.00 within 3 %. The previous K6 and K7 ran one thread per row over
+    (L, B), so their times include the two transposes and K7's (L, B)
+    history scratch that their wrapper added."""
     from sla_tpu_torch.kernels import build
 
     lib = build.cuda_library()
     B, L = x.shape
     p, T = coef.shape[1], q15.shape[1]
-    stream = torch.cuda.current_stream().cuda_stream
+    x_t = x.t().contiguous()
 
-    def call(lib, fn, data, *args, rows: bool = True):
-        x_in = data if rows else data.t().contiguous()
-        y = torch.empty_like(x_in)
-        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        err = getattr(lib, fn)(x_in.data_ptr(), y.data_ptr(), *ptrs, stream)
-        if err:
-            raise RuntimeError(f"{fn}: cudaError {err}")
-        return y if rows else y.t().contiguous()
-
-    def old_fused():
+    def old_longterm():
         hist = torch.empty((L, B), dtype=torch.int32, device=x.device)
-        return call(parent, "sla_fused_encode", x, hist, coef, md, q15, B, L, p, T, M, rows=False)
+        return ctypes_call(parent, "sla_longterm_synth", x, hist, md, q15, B, L, T, transpose=True)
 
-    pairs = {
-        "lattice_predict": (lambda: call(parent, "sla_lattice_predict", x, coef, B, L, p, 1,
-                                         rows=False),
-                            lambda: call(lib, "sla_lattice_predict", x, coef, B, L, p, 1)),
-        "stage2_predict": (lambda: call(parent, "sla_stage2_predict", r1, md, q15, B, L, T, M),
-                           lambda: call(lib, "sla_stage2_predict", r1, md, q15, B, L, T, M)),
-        "synth_cascade": (lambda: call(parent, "sla_synth_cascade", x, coef, md, q15, B, L, p,
-                                       T, M),
-                          lambda: call(lib, "sla_synth_cascade", x, coef, md, q15, B, L, p, T, M)),
-        "fused_encode": (old_fused,
-                         lambda: call(lib, "sla_fused_encode", x, coef, md, q15, B, L, p, T, M)),
+    args = {
+        "lattice_predict": ("sla_lattice_predict", x, coef, B, L, p, 1),
+        "stage2_predict": ("sla_stage2_predict", r1, md, q15, B, L, T, M),
+        "synth_cascade": ("sla_synth_cascade", x, coef, md, q15, B, L, p, T, M),
+        "fused_encode": ("sla_fused_encode", x, coef, md, q15, B, L, p, T, M),
+        "lattice_synth": ("sla_lattice_synth", x_t, coef, B, L, p, 1),
     }
+    pairs = {name: (lambda a=a: ctypes_call(parent, *a), lambda a=a: ctypes_call(lib, *a))
+             for name, a in args.items()}
+    pairs["lms_synth"] = (lambda: ctypes_call(parent, "sla_lms_synth", x, B, L, M, transpose=True),
+                          lambda: ctypes_call(lib, "sla_lms_synth", x, B, L, M))
+    pairs["longterm_synth"] = (old_longterm,
+                               lambda: ctypes_call(lib, "sla_longterm_synth", x, md, q15, B, L, T))
     out = {}
     for name, (prev, new) in pairs.items():
         if not torch.equal(prev(), new()):
             raise AssertionError(f"{name}: the previous and the new kernel differ")
         t = [cuda_ms(f, reps, warmup=1) for f in (prev, new, new, prev)]
+        ratio = (t[0] + t[3]) / (t[1] + t[2])
         out[name] = t
+        note = ""
+        if name in UNCHANGED:
+            note = " unchanged code, " + ("within 3 %" if abs(ratio - 1) <= 0.03 else "OUTSIDE 3 %")
         log("kernels", f"{name} previous / new / new / previous: "
-            + " / ".join(f"{v:.3f}" for v in t) + f" ms (x{(t[0] + t[3]) / (t[1] + t[2]):.2f})")
+            + " / ".join(f"{v:.3f}" for v in t) + f" ms (x{ratio:.2f}{note})")
     return out
+
+
+def long_lag_inputs(seed: int, B: int, L: int, T: int):
+    """Rows whose smallest live lag md - T + 1 is 32 or more (pitches
+    32 + T//2 .. 256, none 0): every K7 step holds 32 samples or more."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-(1 << 20), 1 << 20, (B, L), dtype=np.int32)
+    pitch = rng.integers(32 + T // 2, 257, B)
+    md = (pitch + T // 2).astype(np.int32)
+    q15 = rng.integers(-32768, 32768, (B, T), dtype=np.int32)
+    dev = torch.device("cuda")
+    return [torch.from_numpy(a).to(dev) for a in (x, md, q15)]
 
 
 def phase_kernels(env: dict) -> dict:
@@ -331,6 +367,24 @@ def phase_kernels(env: dict) -> dict:
         staged = shape["lattice_predict"] + shape["stage2_predict"]
         log("kernels", f"B {B} L {L}: fused_encode {shape['fused_encode']:.3f} ms against "
             f"lattice_predict + stage2_predict {staged:.3f} ms")
+        lib = build.cuda_library()
+        raw = {"lms_synth": lambda: ctypes_call(lib, "sla_lms_synth", x, B, L, M),
+               "longterm_synth": lambda: ctypes_call(lib, "sla_longterm_synth", x, md, q15, B, L, T)}
+        for name, fn in raw.items():
+            log("kernels", f"{name} B {B} L {L} raw (ctypes): {cuda_ms(fn, 10, warmup=2):.3f} ms "
+                f"against {shape[name]:.3f} through the wrapper")
+        xl, mdl, ql = long_lag_inputs(B + L + T + 1, B, L, T)
+        err, ms, plain_ms = check_kernel(
+            "longterm_synth (lags >= 32)", lambda: cf.longterm_synth(xl, mdl, ql),
+            lambda: cf.longterm_synth_plain(xl, mdl, ql), reps=10)
+        raw_ms = cuda_ms(lambda: ctypes_call(lib, "sla_longterm_synth", xl, mdl, ql, B, L, T), 10,
+                         warmup=2)
+        bound_ms, bound_by = bound("longterm_synth", B, L, p, T, M, mdl.cpu().numpy(),
+                                   env["int32_per_s"])
+        results["longterm_synth"]["max_abs_err"] = max(results["longterm_synth"]["max_abs_err"], err)
+        log("kernels", f"longterm_synth B {B} L {L} T {T}, every lag >= 32: exact, kernel "
+            f"{ms:.3f} ms, raw (ctypes) {raw_ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bound_ms:.3f} ms ({bound_by}; {100 * bound_ms / raw_ms:.1f} % of it reached raw)")
         if env["parent"] is not None:
             parent_times(env["parent"], x, coef, md, q15, r1, M)
     return results

@@ -10,15 +10,17 @@
 //
 // K1, the encode's stage 1, has no feedback (filters.cuh, "K1"), so it is a
 // stencil: a warp per segment of a row, lanes over samples, read and written
-// in the (B, L) rows as they are. The synthesis filters and the LMS feed
-// back, so their samples are strictly sequential and a row's chain runs in
-// one thread: K2, K3 and K4 are pipelines over tiles (see below), a warp per
-// stage, the input prefetched into shared memory, the long-term history in
-// shared memory, the (B, L) rows read and written directly. K5-K7 (off the
-// codec's path) still run one thread per row over the sample-major (L, B)
-// layout, which their wrapper makes with two transposes: at each sample a
-// warp's 32 rows read and write 128 contiguous bytes, and the sample loads
-// are batched (kLoadBatch) so their latency overlaps.
+// in the (B, L) rows as they are. K7's long-term synthesis feeds back only
+// across at least its smallest lag, so it is a warp per row in lag-sized
+// steps of parallel samples (filters.cuh, "K7"). The lattice synthesis and
+// the LMS feed back every sample, so a row's chain runs in one thread: K2,
+// K3, K4 and K6 are pipelines over tiles (see below), a warp per stage, the
+// input prefetched into shared memory, the long-term history in shared
+// memory, the (B, L) rows read and written directly. K5 (off the codec's
+// path) still runs one thread per row over the sample-major (L, B) layout,
+// which its wrapper makes with two transposes: at each sample a warp's 32
+// rows read and write 128 contiguous bytes, and the sample loads are
+// batched (kLoadBatch) so their latency overlaps.
 //
 // What bounds the sequential kernels on this card: latency. Each sample is
 // a dependent chain of about 2p + 2M multiply-adds (lattice stages, LMS
@@ -106,6 +108,55 @@ __device__ __forceinline__ void produce(const Pipe& pipe, int it, const int32_t*
     for (int r = 0; r < rows; ++r) {
       int32_t* dst = y + (row0 + r) * L + (int64_t)t * sla::kTile;
       for (int j = lane; j < count; j += 32) dst[j] = *pipe.store_src(t, r, j);
+    }
+  }
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+// produce() with a full row group's whole tiles (every tile but a row's
+// last) copied by loops of compile-time trip counts, so the stores' shared
+// memory reads are issued together. K6's producer: with produce()'s
+// run-time bounds the copy loops took 6.1 µs a tile of 32 rows on the H100,
+// a producer warp alone, and set K6's pace (PERF.md; tools/synth_probe.cu).
+template <class Pipe>
+__device__ __forceinline__ void produce_whole(const Pipe& pipe, int it,
+                                              const int32_t* __restrict__ x,
+                                              int32_t* __restrict__ y, int row0, int rows,
+                                              int lane) {
+  constexpr int kLane = sla::kTile / 32;
+  const int64_t L = pipe.L;
+  const auto load = [&](int r, int j) {
+    cp_async4(pipe.load_dst(it, r, j), x + (row0 + r) * L + (int64_t)it * sla::kTile + j);
+  };
+  if (it < pipe.ntiles) {
+    const int count = sla::tile_count(it, pipe.L);
+    if (count == sla::kTile && rows == sla::kGroup) {
+#pragma unroll
+      for (int r = 0; r < sla::kGroup; ++r) {
+#pragma unroll
+        for (int h = 0; h < kLane; ++h) load(r, lane + 32 * h);
+      }
+    } else {
+      for (int r = 0; r < rows; ++r)
+        for (int j = lane; j < count; j += 32) load(r, j);
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  const int t = it - Pipe::kStore;
+  const auto store = [&](int r, int j) {
+    y[(row0 + r) * L + (int64_t)t * sla::kTile + j] = *pipe.store_src(t, r, j);
+  };
+  if (t >= 0 && t < pipe.ntiles) {
+    const int count = sla::tile_count(t, pipe.L);
+    if (count == sla::kTile && rows == sla::kGroup) {
+#pragma unroll
+      for (int r = 0; r < sla::kGroup; ++r) {
+#pragma unroll
+        for (int h = 0; h < kLane; ++h) store(r, lane + 32 * h);
+      }
+    } else {
+      for (int r = 0; r < rows; ++r)
+        for (int j = lane; j < count; j += 32) store(r, j);
     }
   }
   asm volatile("cp.async.wait_group 1;" ::: "memory");
@@ -279,29 +330,72 @@ lattice_synth_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
 
 // K6. Replaces pallas_filters.py lms_filter_tl(synthesize=True)
 // (_lms_kernel_body): sign-sign LMS synthesis; order 0 passes through.
+// Bound on this card: the chain, one lane per row, so L samples times the
+// chain's issue cycles a sample. K3's pipeline scheme (sla::LmsSynthPipe):
+// warp 0 prefetches the (B, L) rows with cp.async and stores finished
+// tiles (produce_whole); warps 2 and 3 compute each sample's step for a
+// whole tile, lanes over samples, one iteration ahead of the chain (the
+// step reads only the input); warp 1 runs only the chain, alone on its
+// scheduler (warp % 4). At the preset orders (4, 8) the chain is
+// sla::LmsSynthChain<M>: about 4M + 12 instructions a sample (the 2M dot
+// products, 2M one-multiply-add weight updates against signs kept beside
+// the history, two signs, the shared-memory accesses), against about 130
+// in the Lms body; it runs at about two cycles an instruction, 84 cycles
+// a sample at M 8 on the H100 (tools/synth_probe.cu). A run-time order
+// keeps the Lms body.
 template <int M>
-__global__ void __launch_bounds__(kThreads)
-lms_synth_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y, int B,
-                 int L, int m) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  sla::LmsSynth<M> step(m);
-  sla::run_row(step, x + row, y + row, B, L);
+__global__ void __launch_bounds__(kPipeThreads)
+lms_synth_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y, int B, int L, int m) {
+  extern __shared__ int32_t smem[];
+  const sla::LmsSynthPipe pipe(smem, L);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * sla::kGroup;
+  const int rows = min(sla::kGroup, B - row0);
+  const int iters = pipe.iterations();
+  if (warp == 0) {
+    for (int it = 0; it < iters; ++it) {
+      produce_whole(pipe, it, x, y, row0, rows, lane);
+      pipe_barrier();
+    }
+  } else if (warp == 1) {
+    sla::LmsSynthChain<M> chain(m);
+    for (int it = 0; it < iters; ++it) {
+      if (lane < rows) pipe.chain(chain, it, lane);
+      pipe_barrier();
+    }
+  } else {
+    for (int it = 0; it < iters; ++it) {
+      for (int r = warp - 2; r < rows; r += 2) pipe.prep(it, r, lane, 32, m);
+      pipe_barrier();
+    }
+  }
 }
 
 // K7. Replaces pallas_filters.py longterm_synth_tl (_longterm_synth_kernel,
 // _longterm_synth_kernel_win): long-term synthesis over the stage's own
-// output, which each row writes to the (L, B) scratch h and reads back at
-// n - lag, as in K3: no ring, no one-hot select, no 12-bit limbs.
+// output. Bound on this card: the bytes, one read and one write of each
+// sample, once the samples of a step run in parallel; for rows whose
+// smallest lag d is short, the L / d dependent steps. A warp per row
+// (sla::longterm_row): 2,048 rows give 2,048 warps on every SM instead of
+// 16 blocks of one thread per row. The row's input is staged and its
+// output history kept in a kLtRing-slot ring in shared memory per warp,
+// read and written conflict-free (lane l, slot n0 + l + 32 v); the input
+// arrives in chunks loaded two ahead; rows with md <= 8 run one serial
+// lane with the history in registers. The (B, L) rows are read and written
+// directly, coalesced: no transposes, no one-hot select, no 12-bit limbs,
+// no device scratch.
 template <int T>
 __global__ void __launch_bounds__(kThreads)
 longterm_synth_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
-                      int32_t* h, const int32_t* __restrict__ md,
-                      const int32_t* __restrict__ q15, int B, int L, int nt) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  sla::LongtermSynth<T> step(h + row, B, md[row], q15 + (int64_t)row * nt, nt);
-  sla::run_row(step, x + row, y + row, B, L);
+                      const int32_t* __restrict__ md, const int32_t* __restrict__ q15, int B,
+                      int L, int nt) {
+  __shared__ __align__(16) int32_t ring[kWarps][sla::kLtRing];  // 16-byte serial accesses
+  const int warp = threadIdx.x >> 5;
+  const int64_t row = (int64_t)blockIdx.x * kWarps + warp;
+  if (row >= B) return;  // whole warps: the steps meet at __syncwarp
+  const sla::WarpLanes lanes{(int)(threadIdx.x & 31)};
+  sla::longterm_row<T>(lanes, x + row * L, y + row * L, L, ring[warp], md[row],
+                       q15 + row * nt, nt, false);
 }
 
 // Launches a pipeline kernel of `threads` threads a block with `words`
@@ -365,12 +459,15 @@ int sla_lattice_synth(const int32_t* x, int32_t* y, const int32_t* coef,
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of a pipeline kernel's block, in bytes: 2 for K2,
-// 3 for K3, 4 for K4, 0 otherwise.
+// Shared memory of a kernel's block, in bytes: 2, 3, 4 and 6 for the
+// pipelines K2, K3, K4 and K6 (dynamic), 7 for K7's rings (static), 0
+// otherwise.
 int sla_pipe_shared_bytes(int kernel) {
   const int words = kernel == 2 ? sla::Stage2Pipe::kWords
                   : kernel == 3 ? sla::SynthPipe::kWords
-                  : kernel == 4 ? sla::EncodePipe::kWords : 0;
+                  : kernel == 4 ? sla::EncodePipe::kWords
+                  : kernel == 6 ? sla::LmsSynthPipe::kWords
+                  : kernel == 7 ? kWarps * sla::kLtRing : 0;
   return words * (int)sizeof(int32_t);
 }
 
@@ -425,24 +522,20 @@ int sla_fused_encode(const int32_t* x, int32_t* y, const int32_t* coef, const in
 
 int sla_lms_synth(const int32_t* x, int32_t* y, int B, int L, int m, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 g = grid_for(B);
-  switch (m) {
-    case 4: lms_synth_kernel<4><<<g, kThreads, 0, s>>>(x, y, B, L, m); break;
-    case 8: lms_synth_kernel<8><<<g, kThreads, 0, s>>>(x, y, B, L, m); break;
-    default: lms_synth_kernel<0><<<g, kThreads, 0, s>>>(x, y, B, L, m); break;
-  }
-  return (int)cudaGetLastError();
+  const int words = sla::LmsSynthPipe::kWords;
+  if (m == 4) return launch_pipe(lms_synth_kernel<4>, kPipeThreads, words, B, s, x, y, B, L, m);
+  if (m == 8) return launch_pipe(lms_synth_kernel<8>, kPipeThreads, words, B, s, x, y, B, L, m);
+  return launch_pipe(lms_synth_kernel<0>, kPipeThreads, words, B, s, x, y, B, L, m);
 }
 
-int sla_longterm_synth(const int32_t* x, int32_t* y, int32_t* h,
-                       const int32_t* md, const int32_t* q15, int B, int L,
-                       int nt, void* stream) {
+int sla_longterm_synth(const int32_t* x, int32_t* y, const int32_t* md, const int32_t* q15,
+                       int B, int L, int nt, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 g = grid_for(B);
+  const dim3 g((unsigned)(((int64_t)B + kWarps - 1) / kWarps));
   switch (nt) {
-    case 1: longterm_synth_kernel<1><<<g, kThreads, 0, s>>>(x, y, h, md, q15, B, L, nt); break;
-    case 3: longterm_synth_kernel<3><<<g, kThreads, 0, s>>>(x, y, h, md, q15, B, L, nt); break;
-    default: longterm_synth_kernel<0><<<g, kThreads, 0, s>>>(x, y, h, md, q15, B, L, nt); break;
+    case 1: longterm_synth_kernel<1><<<g, kThreads, 0, s>>>(x, y, md, q15, B, L, nt); break;
+    case 3: longterm_synth_kernel<3><<<g, kThreads, 0, s>>>(x, y, md, q15, B, L, nt); break;
+    default: longterm_synth_kernel<0><<<g, kThreads, 0, s>>>(x, y, md, q15, B, L, nt); break;
   }
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
 // Bodies and schedules of the seven filter kernels (filters.cu), written
 // once as __host__ __device__ code: nvcc builds them into the CUDA kernels,
 // and a host build (filters_host.cpp, g++ -fwrapv) runs the same code on the
-// CPU, K1's lanes and K2-K4's tile pipelines included, so the tests can hold
-// it against the plain PyTorch versions without a card.
+// CPU, K1's and K7's lanes and K2-K4's and K6's tile pipelines included, so
+// the tests can hold it against the plain PyTorch versions without a card.
 //
 // Semantics are the reference's (src/SLAPredictor.c), as sla_tpu's scan
 // twins state them (sla_tpu/kernels/{emphasis,lattice,lms,longterm}.py):
@@ -134,7 +134,9 @@ struct Lattice {
 // build (HostLanes) holds all 32 lanes of a warp in arrays and moves the
 // values between them, so the CPU tests run the kernels' lane schedule.
 // rotate(v): lane l receives lane (l - 1) mod 32's value, so lane 0 gets
-// lane 31's. lane(i): the lane of the i-th value this thread holds.
+// lane 31's. lane(i): the lane of the i-th value this thread holds. sync():
+// the warp's lanes meet, and their shared-memory writes become visible to
+// each other (the host build runs its lanes one after another already).
 struct HostLanes {
   static constexpr int kCount = 32;
   int lane(int i) const { return i; }
@@ -143,6 +145,7 @@ struct HostLanes {
     for (int l = 31; l > 0; --l) v[l] = v[l - 1];
     v[0] = last;
   }
+  void sync() const {}
 };
 
 #if defined(__CUDACC__)
@@ -153,6 +156,11 @@ struct WarpLanes {
   SLA_HD void rotate(int32_t* v) const {
 #if defined(__CUDA_ARCH__)
     v[0] = __shfl_sync(0xffffffffu, v[0], (self + 31) & 31);
+#endif
+  }
+  SLA_HD void sync() const {
+#if defined(__CUDA_ARCH__)
+    __syncwarp();
 #endif
   }
 };
@@ -355,44 +363,6 @@ struct Lms {
   }
 };
 
-// Long-term synthesis of one row. md = max_delay (pitch + T/2), 0 for a row
-// without the stage; q15 = Q31 coefficient >> 16. Active from n >= md: pred
-// from the stage's own OUTPUT h[n - (md - j)], which the row writes to h as
-// it goes; a tap at or ahead of n contributes 0, as sla_tpu's dropped
-// scatter does. (The predict direction is longterm_fir below.)
-template <int T>
-struct Longterm {
-  static constexpr int kCap = T > 0 ? T : kMaxTaps;
-  int32_t* h;  // the stage's output history
-  int64_t stride;
-  int md;
-  int nt;
-  int32_t q[kCap];
-
-  SLA_HD Longterm(int32_t* h_, int64_t stride_, int md_, const int32_t* q15, int nt_rt)
-      : h(h_), stride(stride_), md(md_), nt(T > 0 ? T : nt_rt) {
-    const int n = T > 0 ? T : nt;
-    SLA_UNROLL
-    for (int j = 0; j < n; ++j) q[j] = q15[j];
-  }
-
-  SLA_HD int32_t operator()(int32_t x, int n) {
-    const int taps = T > 0 ? T : nt;
-    int32_t out = x;
-    if (md > 0 && n >= md) {
-      int64_t acc = 0;
-      SLA_UNROLL
-      for (int j = 0; j < taps; ++j) {
-        const int back = md - j;
-        if (back >= 1) acc += (int64_t)q[j] * h[(int64_t)(n - back) * stride];
-      }
-      out = wadd(x, wrap64((acc + (1 << 14)) >> 15));
-    }
-    h[(int64_t)n * stride] = out;
-    return out;
-  }
-};
-
 // K5: lattice synthesize -> de-emphasis (when EMPH)
 template <int P, bool EMPH>
 struct LatticeSynth {
@@ -405,7 +375,7 @@ struct LatticeSynth {
   }
 };
 
-// LMS as a step: K6 (synthesize alone), K3's first stage and K2's last
+// LMS as a step: K3's first stage, K2's and K4's last
 template <int M, bool SYNTH, bool TREE = true>
 struct LmsStep {
   Lms<M, SYNTH, TREE> lms;
@@ -415,19 +385,11 @@ struct LmsStep {
 template <int M>
 using LmsSynth = LmsStep<M, true>;
 
-// K7: long-term synthesize alone, over its own output history h
-template <int T>
-struct LongtermSynth {
-  Longterm<T> longterm;
-  SLA_HD LongtermSynth(int32_t* h, int64_t stride, int md, const int32_t* q15, int nt)
-      : longterm(h, stride, md, q15, nt) {}
-  SLA_HD int32_t operator()(int32_t x, int n) { return longterm(x, n); }
-};
-
-// Runs one row through `step` in sample order. x and y are the row's first
-// samples in the sample-major (L, B) layout, so consecutive samples are
-// `stride` (= B) apart. Samples are loaded kLoadBatch at a time so their
-// memory latencies overlap instead of stalling every sample.
+// Runs one row through `step` in sample order (K5, and the host build's
+// LMS alone). x and y are the row's first samples in the sample-major
+// (L, B) layout, so consecutive samples are `stride` (= B) apart. Samples
+// are loaded kLoadBatch at a time so their memory latencies overlap
+// instead of stalling every sample.
 template <class Step>
 SLA_HD void run_row(Step& step, const int32_t* x, int32_t* y, int64_t stride, int L) {
   for (int n0 = 0; n0 < L; n0 += kLoadBatch) {
@@ -485,8 +447,10 @@ struct Tiled : Step {
 
 // K3's long-term synthesis over one row, its output history in a ring of
 // kRing slots (sample n at n & kRingMask) in shared memory, not in device
-// memory. Active from n >= md; a tap at or ahead of n contributes 0, as in
-// Longterm<T>.
+// memory. md = max_delay (pitch + T/2), 0 for a row without the stage; q15
+// = Q31 coefficient >> 16. Active from n >= md: pred from the stage's own
+// OUTPUT at n - (md - j); a tap at or ahead of n contributes 0, as
+// sla_tpu's scan twin drops it.
 template <int T>
 struct LongtermSynthRing {
   static constexpr int kCap = T > 0 ? T : kMaxTaps;
@@ -545,6 +509,241 @@ struct LongtermSynthRing {
     }
   }
 };
+
+// -- K7: long-term synthesis in lag-sized steps, lanes over samples ---------
+//
+// Every live tap reads y[n - back] with back >= d = max(1, md - T + 1), so
+// y[n .. n + d - 1] depend only on outputs before n: a warp walks its row
+// in steps of c = min(d, kLtStep) samples and computes a step's samples in
+// parallel, lane l owning samples n0 + l + 32 v (v < kLtLaneSamples; one
+// sample a lane when c <= 32, two when c <= 64), then writes them to the row's ring and
+// meets the other lanes (sync) before the next step reads them. Nothing is
+// re-associated: every output is the same int64 sum of the same products as
+// the sequential loop. Rows without the stage (md 0, or no taps) walk whole
+// steps as a copy.
+//
+// The input reaches the ring in chunks of kLtStep samples, loaded into
+// registers kLtAhead chunks ahead of the step that needs them (a ring slot
+// holds x[n] until the step overwrites it with y[n]), so a step waits on
+// shared memory and not on device memory, however short it is.
+//
+// A row with md <= kLtSerial (d at most 8, mostly 1) would take one short
+// step per sample or few; one lane walks it instead (longterm_serial), its
+// last kLtSerial outputs in registers and its delay a template argument, so
+// a sample costs T multiply-adds, a shift and an add, and waits on no
+// shared-memory round trip (the ring is read and written 8 samples at a
+// time).
+
+constexpr int kLtLaneSamples = 4;                  // K7: samples per lane and step
+constexpr int kLtStep = 32 * kLtLaneSamples;       // K7: the largest step, and a chunk
+constexpr int kLtRing = 1024;                      // K7: ring slots per row
+constexpr int kLtRingMask = kLtRing - 1;
+constexpr int kLtSerial = 8;                       // K7: the serial lane's register window
+constexpr int kLtAhead = 2;                        // K7: chunks of input in flight
+static_assert(kMaxDelay + 2 * kLtStep <= kLtRing,
+              "a staged chunk would overwrite history a step reads");
+
+// K7's step for a row: its smallest live lag, at most kLtStep.
+SLA_HD int longterm_step(int md, int taps) {
+  if (md <= 0 || taps <= 0) return kLtStep;
+  const int d = md - taps + 1;
+  return d < 1 ? 1 : d < kLtStep ? d : kLtStep;
+}
+
+// acc + a * b in int64 from two int32: one multiply-add on the card.
+SLA_HD int64_t mad_wide(int32_t a, int32_t b, int64_t acc) {
+#if defined(__CUDA_ARCH__)
+  int64_t r;
+  asm("mad.wide.s32 %0, %1, %2, %3;" : "=l"(r) : "r"(a), "r"(b), "l"(acc));
+  return r;
+#else
+  return acc + (int64_t)a * b;
+#endif
+}
+
+// K7's taps of one row (md, q15 as in LongtermSynthRing).
+template <int T>
+struct LongtermTaps {
+  static constexpr int kCap = T > 0 ? T : kMaxTaps;
+  int md;
+  int nt;
+  int32_t q[kCap];
+
+  SLA_HD LongtermTaps(int md_, const int32_t* q15, int nt_rt) : md(md_), nt(T > 0 ? T : nt_rt) {
+    SLA_UNROLL
+    for (int j = 0; j < kCap; ++j) q[j] = j < nt ? q15[j] : 0;
+  }
+
+  // the prediction at sample n >= md from the outputs in the ring
+  SLA_HD int32_t pred(const int32_t* ring, int n) const {
+    int64_t acc = 1 << 14;
+    SLA_UNROLL
+    for (int j = 0; j < kCap; ++j) {
+      const int back = md - j;
+      if (j < nt && back >= 1) acc = mad_wide(q[j], ring[(n - back) & kLtRingMask], acc);
+    }
+    return wrap64(acc >> 15);
+  }
+};
+
+// Lane samples base + l + 32 u of a chunk, 0 past the row.
+template <class Lanes>
+SLA_HD void longterm_load(const Lanes& lanes, const int32_t* x, int L, int base,
+                          int32_t (&v)[Lanes::kCount][kLtLaneSamples]) {
+  for (int i = 0; i < Lanes::kCount; ++i) {
+    SLA_UNROLL
+    for (int u = 0; u < kLtLaneSamples; ++u) {
+      const int n = base + lanes.lane(i) + 32 * u;
+      v[i][u] = n < L ? x[n] : 0;
+    }
+  }
+}
+
+template <class Lanes>
+SLA_HD void longterm_stage(const Lanes& lanes, int32_t* ring, int base,
+                           const int32_t (&v)[Lanes::kCount][kLtLaneSamples]) {
+  for (int i = 0; i < Lanes::kCount; ++i) {
+    SLA_UNROLL
+    for (int u = 0; u < kLtLaneSamples; ++u)
+      ring[(base + lanes.lane(i) + 32 * u) & kLtRingMask] = v[i][u];
+  }
+}
+
+// K7's parallel step: samples n0 .. n0 + count - 1, V a lane (count <=
+// 32 V), in place in the ring (input in, output out) and to y.
+template <int T, int V, class Lanes>
+SLA_HD void longterm_lanes(const Lanes& lanes, const LongtermTaps<T>& lt, int32_t* ring, int32_t* y,
+                           int n0, int count, bool reverse) {
+  constexpr int N = Lanes::kCount;
+  for (int k = 0; k < N; ++k) {
+    const int i = reverse ? N - 1 - k : k;
+    int32_t v[V];
+    SLA_UNROLL
+    for (int u = 0; u < V; ++u) {
+      const int s = lanes.lane(i) + 32 * u, n = n0 + s;
+      if (s < count) {
+        v[u] = ring[n & kLtRingMask];
+        if (lt.md > 0 && n >= lt.md) v[u] = wadd(v[u], lt.pred(ring, n));
+      }
+    }
+    SLA_UNROLL
+    for (int u = 0; u < V; ++u) {
+      const int s = lanes.lane(i) + 32 * u, n = n0 + s;
+      if (s < count) {
+        ring[n & kLtRingMask] = v[u];
+        y[n] = v[u];
+      }
+    }
+  }
+}
+
+// K7's serial lane at delay MD <= kLtSerial: samples n0 .. n0 + kLtStep -
+// 1, in place in the ring, the last kLtSerial outputs in w. Unrolled over
+// blocks of kLtSerial samples: before sample k of a block, y[n - 1 - a]
+// sits in w[(k - 1 - a) mod kLtSerial], and the sample writes its own over
+// the oldest, w[k], so the window rotates by renaming and every tap's lag
+// MD - j is a compile-time index. GATE: the step holds samples below MD,
+// which pass through.
+template <int MD, int T, bool GATE>
+SLA_HD void longterm_serial(const LongtermTaps<T>& lt, int32_t* ring, int n0, int32_t* w) {
+  constexpr int K = kLtSerial, kCap = LongtermTaps<T>::kCap;
+  static_assert(MD >= 1 && MD <= K && K == 8 && kLtStep % K == 0,
+                "lags within the window, whole blocks of two 16-byte ring accesses");
+  for (int b0 = 0; b0 < kLtStep; b0 += K) {
+    int32_t* blk = ring + ((n0 + b0) & kLtRingMask);  // n0 + b0 is a multiple of 8
+    int32_t v[K];
+#if defined(__CUDA_ARCH__)
+    const int4 lo = reinterpret_cast<const int4*>(blk)[0], hi = reinterpret_cast<const int4*>(blk)[1];
+    v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w, v[4] = hi.x, v[5] = hi.y, v[6] = hi.z,
+    v[7] = hi.w;
+#else
+    for (int k = 0; k < K; ++k) v[k] = blk[k];
+#endif
+    SLA_UNROLL
+    for (int k = 0; k < K; ++k) {
+      int64_t acc = 1 << 14;
+      SLA_UNROLL
+      for (int j = kCap - 1; j >= 0; --j) {  // the newest output (lag MD - j) joins last
+        if (j < lt.nt && MD - j >= 1) acc = mad_wide(lt.q[j], w[(k - (MD - j) + 2 * K) % K], acc);
+      }
+      if (!GATE || n0 + b0 + k >= MD) v[k] = wadd(v[k], wrap64(acc >> 15));
+      w[k] = v[k];
+    }
+#if defined(__CUDA_ARCH__)
+    reinterpret_cast<int4*>(blk)[0] = make_int4(v[0], v[1], v[2], v[3]);
+    reinterpret_cast<int4*>(blk)[1] = make_int4(v[4], v[5], v[6], v[7]);
+#else
+    for (int k = 0; k < K; ++k) blk[k] = v[k];
+#endif
+  }
+}
+
+// The serial lane at the row's delay md (MD .. kLtSerial).
+template <int T, bool GATE, int MD = 1>
+SLA_HD void longterm_serial_at(const LongtermTaps<T>& lt, int32_t* ring, int n0, int32_t* w) {
+  if (lt.md == MD) return longterm_serial<MD, T, GATE>(lt, ring, n0, w);
+  if constexpr (MD < kLtSerial) longterm_serial_at<T, GATE, MD + 1>(lt, ring, n0, w);
+}
+
+// K7 on one row of L samples, x -> y, with `ring` (kLtRing slots) for its
+// staged input and output history. reverse runs the lanes of each step in
+// reverse order (host build only; one lane a thread on the card): a lane
+// that read a sample written in its own step would then read a stale slot.
+template <int T, class Lanes>
+SLA_HD void longterm_row(const Lanes& lanes, const int32_t* x, int32_t* y, int L, int32_t* ring,
+                         int md, const int32_t* q15, int nt_rt, bool reverse) {
+  constexpr int N = Lanes::kCount, V = kLtLaneSamples;
+  const LongtermTaps<T> lt(md, q15, nt_rt);
+  const bool serial = md > 0 && lt.nt > 0 && md <= kLtSerial;
+  const int c = serial ? kLtStep : longterm_step(md, lt.nt);
+  int32_t w[kLtSerial];
+  SLA_UNROLL
+  for (int k = 0; k < kLtSerial; ++k) w[k] = 0;
+  int32_t ahead[kLtAhead][N][V];  // chunk k in ahead[k % kLtAhead] while in flight
+  SLA_UNROLL
+  for (int a = 0; a < kLtAhead; ++a) longterm_load(lanes, x, L, a * kLtStep, ahead[a]);
+  int staged = 0;  // samples [0, staged) are in the ring
+  for (int n0 = 0; n0 < L; n0 += c) {
+    if (staged < n0 + c) {  // at most one chunk a step, since c <= kLtStep
+      const int next = (staged / kLtStep) % kLtAhead;
+      SLA_UNROLL
+      for (int a = 0; a < kLtAhead; ++a) {  // a compile-time index: the chunks stay in registers
+        if (a != next) continue;
+        longterm_stage(lanes, ring, staged, ahead[a]);
+        longterm_load(lanes, x, L, staged + kLtAhead * kLtStep, ahead[a]);
+      }
+      staged += kLtStep;
+      lanes.sync();
+    }
+    const int count = L - n0 < c ? L - n0 : c;
+    if (serial) {
+      // one lane computes the step in the ring, then every lane stores it
+      for (int i = 0; i < N; ++i) {
+        if (lanes.lane(i) != 0) continue;
+        if (n0 == 0) {
+          longterm_serial_at<T, true>(lt, ring, n0, w);
+        } else {
+          longterm_serial_at<T, false>(lt, ring, n0, w);
+        }
+      }
+      lanes.sync();
+      for (int i = 0; i < N; ++i) {
+        SLA_UNROLL
+        for (int u = 0; u < V; ++u) {
+          const int s = lanes.lane(i) + 32 * u;
+          if (s < count) y[n0 + s] = ring[(n0 + s) & kLtRingMask];
+        }
+      }
+    } else if (c <= 32) {
+      longterm_lanes<T, 1>(lanes, lt, ring, y, n0, count, reverse);
+    } else if (c <= 64) {
+      longterm_lanes<T, 2>(lanes, lt, ring, y, n0, count, reverse);
+    } else {
+      longterm_lanes<T, V>(lanes, lt, ring, y, n0, count, reverse);
+    }
+    lanes.sync();
+  }
+}
 
 // K2's and K4's long-term FIR residual at sample n of one row, from the
 // row's INPUT ring: pred from x[n - (md - j)], active from n >= md; a tap at
@@ -745,6 +944,149 @@ struct EncodePipe : FirLms<3> {
         if (s < count) dst[(t * kTile + s) & kRingMask] = f[i][j];
       }
     }
+  }
+};
+
+// -- K6: LMS synthesis as a tile pipeline with a slim chain ------------------
+//
+// In synthesis the LMS step sign(x) * (bit_length(|x|) >> 1) reads only the
+// input residual, so a prep role computes it for a whole tile, lanes over
+// samples, before the chain needs it (0 for a row's first M samples, the
+// warm-up). What is left on the chain per sample is the dot product, the
+// output, the weight updates and the history.
+
+// The chain at a compile-time order M (4 or 8). The sign of every history
+// value is kept beside it, set once when the value enters, so each weight
+// update is one multiply-add. The history is a ring of M slots walked in
+// blocks of M samples, fully unrolled: before sample k of a block the value
+// of age i (xb[i], pb[i] of Lms) sits in slot (k - 1 - i) mod M, and the
+// sample writes its new values over the oldest, slot k. Every index is a
+// compile-time constant, so the ring stays in registers and its rotation
+// costs no moves. fc and ic are indexed by age, as in Lms. A tile holds
+// kTile / M whole blocks, so every tile starts at slot 0.
+template <int M>
+struct LmsSynthChain {
+  static_assert(M > 0 && kTile % M == 0 && M <= kTile, "a tile must hold whole blocks");
+  int32_t fc[M], ic[M], xv[M], pv[M], xs[M], ps[M];
+
+  SLA_HD explicit LmsSynthChain(int) {
+    SLA_UNROLL
+    for (int i = 0; i < M; ++i) fc[i] = ic[i] = xv[i] = pv[i] = xs[i] = ps[i] = 0;
+  }
+
+  SLA_HD static constexpr int slot(int k, int age) { return (k - 1 - age + 2 * M) % M; }
+
+  // samples x[0 .. M) with their steps st[0 .. M) into out. WARM: the
+  // row's first M samples, where the weights are still 0 (so pred is 0)
+  // and the prediction history takes the sample.
+  template <bool WARM>
+  SLA_HD void block(const int32_t* x, const int32_t* st, int32_t* out) {
+    SLA_UNROLL
+    for (int k = 0; k < M; ++k) {
+      // four accumulators over ages 1 .. M-1; age 0 (the previous sample's
+      // output and prediction) joins last
+      uint32_t acc[4] = {512u, 0u, 0u, 0u};
+      SLA_UNROLL
+      for (int i = 1; i < M; ++i) {
+        const int s = slot(k, i);
+        acc[(2 * i) & 3] += (uint32_t)fc[i] * (uint32_t)xv[s];
+        acc[(2 * i + 1) & 3] += (uint32_t)ic[i] * (uint32_t)pv[s];
+      }
+      const int s0 = slot(k, 0);
+      uint32_t sum = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      sum += (uint32_t)ic[0] * (uint32_t)pv[s0];
+      sum += (uint32_t)fc[0] * (uint32_t)xv[s0];
+      const int32_t pred = (int32_t)sum >> 10;
+      const int32_t in = x[k];
+      const int32_t o = wadd(in, pred);
+      const int32_t step = st[k];
+      SLA_UNROLL
+      for (int i = 0; i < M; ++i) {
+        const int s = slot(k, i);
+        fc[i] = wadd(fc[i], step * xs[s]);
+        ic[i] = wadd(ic[i], step * ps[s]);
+      }
+      xv[k] = o;
+      xs[k] = sgn(o);
+      pv[k] = WARM ? in : pred;
+      ps[k] = sgn(pv[k]);
+      out[k] = o;
+    }
+  }
+
+  // tile t of a row: x, st and out are the row's part of their tiles
+  SLA_HD void tile(const int32_t* x, const int32_t* st, int32_t* out, int t, int) {
+    int b = 0;
+    if (t == 0) {
+      block<true>(x, st, out);
+      b = M;
+    }
+    for (; b < kTile; b += M) block<false>(x + b, st + b, out + b);
+  }
+};
+
+// The chain at a run-time order (M <= kMaxLms; 0 passes through): the Lms
+// body K2-K4 share, which computes its own steps.
+template <>
+struct LmsSynthChain<0> {
+  Lms<0, true> lms;
+  SLA_HD explicit LmsSynthChain(int m) : lms(m) {}
+  SLA_HD void tile(const int32_t* x, const int32_t*, int32_t* out, int, int count) {
+    for (int j = 0; j < count; ++j) out[j] = lms(x[j]);
+  }
+};
+
+// K6's pipeline. Iteration `it`:
+//   the producer loads tile it of the residual into in[it % kInSlots]
+//   the prep role   tile it - kPrep:   in -> step (sample-parallel)
+//   the chain       tile it - kChain:  in, step -> o
+//   the producer stores tile it - kStore from o.
+// The loads land one iteration after they are issued, so the prep role
+// reads a tile two iterations after its load, and the chain one more: four
+// input slots (loading, landed, prep, chain); the steps and the outputs
+// pass through two slots each.
+struct LmsSynthPipe {
+  static constexpr int kInSlots = 4, kPrep = 2, kChain = 3, kStore = 4;
+  static constexpr int kWords = kInSlots * kTileWords + 2 * 2 * kTileWords;
+  int32_t* in;
+  int32_t* step;
+  int32_t* o;
+  int L, ntiles;
+
+  SLA_HD LmsSynthPipe(int32_t* smem, int L_)
+      : in(smem), step(in + kInSlots * kTileWords), o(step + 2 * kTileWords), L(L_),
+        ntiles((L_ + kTile - 1) / kTile) {}
+
+  SLA_HD int iterations() const { return ntiles + kStore; }
+  SLA_HD int32_t* load_dst(int t, int r, int j) const {
+    return in + (t % kInSlots) * kTileWords + r * kTilePitch + j;
+  }
+  SLA_HD const int32_t* store_src(int t, int r, int j) const {
+    return o + (t % 2) * kTileWords + r * kTilePitch + j;
+  }
+
+  // the steps of row r (order m), samples j0, j0 + stride, ... of the tile
+  // lagging kPrep
+  SLA_HD void prep(int it, int r, int j0, int stride, int m) const {
+    const int t = it - kPrep;
+    if (t < 0 || t >= ntiles) return;
+    const int count = tile_count(t, L);
+    const int32_t* src = in + (t % kInSlots) * kTileWords + r * kTilePitch;
+    int32_t* dst = step + (t % 2) * kTileWords + r * kTilePitch;
+    for (int j = j0; j < count; j += stride) {
+      const int32_t x = src[j];
+      dst[j] = t * kTile + j < m ? 0 : sgn(x) * (bit_length(magnitude(x)) >> 1);
+    }
+  }
+
+  // row r's chain on the tile lagging kChain
+  template <class Chain>
+  SLA_HD void chain(Chain& c, int it, int r) const {
+    const int t = it - kChain;
+    if (t < 0 || t >= ntiles) return;
+    const int at = r * kTilePitch;
+    c.tile(in + (t % kInSlots) * kTileWords + at, step + (t % 2) * kTileWords + at,
+           o + (t % 2) * kTileWords + at, t, tile_count(t, L));
   }
 };
 

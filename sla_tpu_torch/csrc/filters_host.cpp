@@ -1,17 +1,20 @@
 // Host build of the kernels' bodies (filters.cuh), for the tests only:
 // g++ -fwrapv compiles it on a machine without a card, and the tests hold
 // each body against the plain PyTorch version. Same parameters as the C
-// entries of filters.cu, in the same layouts ((B, L) rows for K1-K4, the
-// sample-major (L, B) for K5-K7); `fixed` selects the compile-time-order
-// instantiation the kernel would take for these orders (when one exists)
-// instead of the run-time one. K1 runs its kernel's lane schedule: each
-// segment's chunks through sla::HostLanes, which holds a warp's 32 lanes
-// and does its shuffles. K2-K4 run their kernels' tile schedule
-// (Stage2Pipe, SynthPipe, EncodePipe) one row group at a time, each
-// iteration's roles one after another in pipeline order, so a slot that two
-// roles share in one iteration gives a wrong tile here; K4 can also run
-// them in reverse order, so a tile read in the iteration that writes it
-// gives a wrong tile too.
+// entries of filters.cu, in the same layouts ((B, L) rows for K1-K4, K6 and
+// K7, the sample-major (L, B) for K5 and the LMS alone); `fixed` selects
+// the compile-time-order instantiation the kernel would take for these
+// orders (when one exists) instead of the run-time one. K1 and K7 run their
+// kernels' lane schedules through sla::HostLanes, which holds a warp's 32
+// lanes (K1: each segment's chunks and shuffles; K7: each step's lanes one
+// after another, forward or in reverse, so a lane that reads a sample
+// written in its own step gives a wrong sample in one of the two orders).
+// K2-K4 and K6 run their kernels' tile schedule (Stage2Pipe, SynthPipe,
+// EncodePipe, LmsSynthPipe) one row group at a time, each iteration's roles
+// one after another in pipeline order, so a slot that two roles share in
+// one iteration gives a wrong tile here; K4 and K6 can also run them in
+// reverse order, so a tile read in the iteration that writes it gives a
+// wrong tile too.
 #include <stdint.h>
 
 #include <algorithm>
@@ -30,12 +33,8 @@ void run_rows(int B, int L, const int32_t* x, int32_t* y, Step (*make)(int, void
 }
 
 struct Args {
-  const int32_t* x;
-  int32_t* h;
   const int32_t* coef;
-  const int32_t* md;
-  const int32_t* q15;
-  int B, p, nt, m;
+  int p, m;
 };
 
 // The producer's part of iteration `it`, done at once: copy tile it in
@@ -168,10 +167,46 @@ sla::LatticeSynth<P, EMPH> make_lattice_synth(int row, void* ctx) {
   return sla::LatticeSynth<P, EMPH>(a.coef + (int64_t)row * a.p, a.p);
 }
 
+// K6's kernel, one row group after another; (B, L) rows
+template <int M>
+void lms_synth_pipe(const int32_t* x, int32_t* y, int B, int L, int m, bool reverse) {
+  std::vector<int32_t> smem(sla::LmsSynthPipe::kWords);
+  for (int row0 = 0; row0 < B; row0 += sla::kGroup) {
+    const int rows = std::min(sla::kGroup, B - row0);
+    const sla::LmsSynthPipe pipe(smem.data(), L);
+    std::vector<sla::LmsSynthChain<M>> chain(rows, sla::LmsSynthChain<M>(m));
+    for (int it = 0; it < pipe.iterations(); ++it) {
+      const auto prep = [&] {
+        for (int r = 0; r < rows; ++r) pipe.prep(it, r, 0, 1, m);
+      };
+      const auto chain_role = [&] {
+        for (int r = 0; r < rows; ++r) pipe.chain(chain[r], it, r);
+      };
+      if (!reverse) {
+        produce(pipe, it, x, row0, rows);
+        prep();
+        chain_role();
+        store(pipe, it, y, row0, rows);
+      } else {
+        store(pipe, it, y, row0, rows);
+        chain_role();
+        prep();
+        produce(pipe, it, x, row0, rows);
+      }
+    }
+  }
+}
+
+// K7's kernel, one warp (row) after another; (B, L) rows. The rows share
+// one ring, so a slot read before the row wrote it holds another row's
+// sample.
 template <int T>
-sla::LongtermSynth<T> make_longterm_synth(int row, void* ctx) {
-  const Args& a = *(const Args*)ctx;
-  return sla::LongtermSynth<T>(a.h + row, a.B, a.md[row], a.q15 + (int64_t)row * a.nt, a.nt);
+void longterm_rows(const int32_t* x, int32_t* y, const int32_t* md, const int32_t* q15, int B,
+                   int L, int nt, bool reverse) {
+  std::vector<int32_t> ring(sla::kLtRing);
+  for (int64_t row = 0; row < B; ++row)
+    sla::longterm_row<T>(sla::HostLanes(), x + row * L, y + row * L, L, ring.data(), md[row],
+                         q15 + row * nt, nt, reverse);
 }
 
 }  // namespace
@@ -191,7 +226,7 @@ void sla_host_lattice_predict(const int32_t* x, int32_t* y, const int32_t* coef,
 
 void sla_host_lattice_synth(const int32_t* x, int32_t* y, const int32_t* coef, int B, int L,
                             int p, int emphasis, int fixed) {
-  Args a{x, nullptr, coef, nullptr, nullptr, B, p, 0, 0};
+  Args a{coef, p, 0};
   if (!emphasis) return run_rows(B, L, x, y, make_lattice_synth<0, false>, &a);
   if (fixed && p == 8) return run_rows(B, L, x, y, make_lattice_synth<8, true>, &a);
   if (fixed && p == 16) return run_rows(B, L, x, y, make_lattice_synth<16, true>, &a);
@@ -224,7 +259,7 @@ void sla_host_synth_cascade(const int32_t* x, int32_t* y, const int32_t* coef, c
 // the kernels use (tree = 1) or the serial one (tree = 0); (L, B) rows.
 void sla_host_lms(const int32_t* x, int32_t* y, int B, int L, int m, int synth, int tree,
                   int fixed) {
-  Args a{x, nullptr, nullptr, nullptr, nullptr, B, 0, 0, m};
+  Args a{nullptr, 0, m};
   if (fixed && m == 8) {
     if (synth) return tree ? run_rows(B, L, x, y, make_lms<8, true, true>, &a)
                            : run_rows(B, L, x, y, make_lms<8, true, false>, &a);
@@ -252,19 +287,20 @@ void sla_host_fused_encode(const int32_t* x, int32_t* y, const int32_t* coef, co
   encode_pipe<0, 0, 0>(x, y, coef, md, q15, B, L, p, nt, m, reverse);
 }
 
-void sla_host_lms_synth(const int32_t* x, int32_t* y, int B, int L, int m, int fixed) {
-  Args a{x, nullptr, nullptr, nullptr, nullptr, B, 0, 0, m};
-  if (fixed && m == 4) return run_rows(B, L, x, y, make_lms<4, true, true>, &a);
-  if (fixed && m == 8) return run_rows(B, L, x, y, make_lms<8, true, true>, &a);
-  run_rows(B, L, x, y, make_lms<0, true, true>, &a);
+// K6; reverse: run each iteration's roles in reverse pipeline order
+void sla_host_lms_synth(const int32_t* x, int32_t* y, int B, int L, int m, int fixed,
+                        int reverse) {
+  if (fixed && m == 4) return lms_synth_pipe<4>(x, y, B, L, m, reverse);
+  if (fixed && m == 8) return lms_synth_pipe<8>(x, y, B, L, m, reverse);
+  lms_synth_pipe<0>(x, y, B, L, m, reverse);
 }
 
-void sla_host_longterm_synth(const int32_t* x, int32_t* y, int32_t* h, const int32_t* md,
-                             const int32_t* q15, int B, int L, int nt, int fixed) {
-  Args a{x, h, nullptr, md, q15, B, 0, nt, 0};
-  if (fixed && nt == 1) return run_rows(B, L, x, y, make_longterm_synth<1>, &a);
-  if (fixed && nt == 3) return run_rows(B, L, x, y, make_longterm_synth<3>, &a);
-  run_rows(B, L, x, y, make_longterm_synth<0>, &a);
+// K7; reverse: run each step's lanes in reverse order
+void sla_host_longterm_synth(const int32_t* x, int32_t* y, const int32_t* md, const int32_t* q15,
+                             int B, int L, int nt, int fixed, int reverse) {
+  if (fixed && nt == 1) return longterm_rows<1>(x, y, md, q15, B, L, nt, reverse);
+  if (fixed && nt == 3) return longterm_rows<3>(x, y, md, q15, B, L, nt, reverse);
+  longterm_rows<0>(x, y, md, q15, B, L, nt, reverse);
 }
 
 }  // extern "C"

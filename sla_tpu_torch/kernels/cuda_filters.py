@@ -18,9 +18,9 @@ fused_stage2_wide_tl, fused_synth_tl / fused_synth_wide_tl, fused_encode_tl
 its synthesize direction) and longterm_synth_tl.
 
 Every wrapper takes (B, L) int32 rows, each filtered from zero state (the
-format resets the filters at block start), and returns (B, L) int32. K1-K4
-read and write the rows as they are; K5-K7 run on the sample-major (L, B)
-layout, between two transposes. The long-term
+format resets the filters at block start), and returns (B, L) int32. K1-K4,
+K6 and K7 read and write the rows as they are; K5 runs on the sample-major
+(L, B) layout, between two transposes. The long-term
 parameters are in the kernels' layout: md (B,) int32 = pitch + T//2 (at
 most 258), 0 for a row without the stage, and q15 (B, T) int32 = Q31
 coefficient >> 16 (sla_tpu_torch/params.py makes them).
@@ -149,8 +149,8 @@ def _check(data: torch.Tensor, coef=None, md=None, q15=None, lms_order: int = 0)
 
 
 def _launch(name: str, fn, data: torch.Tensor, *args) -> torch.Tensor:
-    """Transposes rows to K5-K7's (L, B) layout, launches `fn` on the
-    current stream and transposes the result back."""
+    """Transposes rows to K5's (L, B) layout, launches `fn` on the current
+    stream and transposes the result back."""
     with torch.cuda.device(data.device):
         x_t = data.t().contiguous()
         y_t = torch.empty_like(x_t)
@@ -263,7 +263,7 @@ def lms_synth(data: torch.Tensor, lms_order: int) -> torch.Tensor:
     if data.device.type == "cpu":
         return lms_synth_plain(data, lms_order)
     B, L = data.shape
-    return _launch("lms_synth", "sla_lms_synth", data, B, L, lms_order)
+    return _launch_rows("lms_synth", "sla_lms_synth", data, B, L, lms_order)
 
 
 def longterm_synth(data: torch.Tensor, md: torch.Tensor, q15: torch.Tensor) -> torch.Tensor:
@@ -275,7 +275,5 @@ def longterm_synth(data: torch.Tensor, md: torch.Tensor, q15: torch.Tensor) -> t
     if data.device.type == "cpu":
         return longterm_synth_plain(data, md, q15)
     B, L = data.shape
-    # the stage's output history, (L, B) like the data
-    hist = torch.empty((L, B), dtype=torch.int32, device=data.device)
-    return _launch("longterm_synth", "sla_longterm_synth", data,
-                   hist, md.contiguous(), q15.contiguous(), B, L, q15.shape[1])
+    return _launch_rows("longterm_synth", "sla_longterm_synth", data,
+                        md.contiguous(), q15.contiguous(), B, L, q15.shape[1])

@@ -1,5 +1,5 @@
 """The seven CUDA kernels on the card against their plain PyTorch versions
-on the same card (K1-K4 also on ragged and misaligned rows), the fused
+on the same card (K1-K4, K6 and K7 also on ragged and misaligned rows), the fused
 encode against the two-stage form, and the encode/decode slice on the card
 against the host backend. Needs an NVIDIA GPU with nvcc (the kernels build
 at first use); elsewhere every test skips. Run them on a machine with a
@@ -121,6 +121,41 @@ def test_stencil_and_encode_pipeline_on_ragged_shapes_on_card(dev, B, L, p, T, M
         assert torch.equal(k1, cuda_filters.lattice_predict_plain(x, coef))
         assert torch.equal(k1_plain_rows, cuda_filters.lattice_predict_plain(x, coef, False))
         assert torch.equal(k4, cuda_filters.fused_encode_plain(x, coef, md, q15, M))
+
+
+RAGGED_SHAPES = [(1, 1), (33, 37), (70, 65), (40, 1300), (3, 3001)]
+LAGS = [1, 2, 31, 32, 33, 258]
+
+
+@pytest.mark.parametrize("B,L", RAGGED_SHAPES)
+@pytest.mark.parametrize("T", [1, 3, 5])
+def test_longterm_synth_lag_steps_on_card(dev, B, L, T):
+    """K7 (a warp per row, steps of the row's smallest live lag) with
+    delays of 1, 2, 31, 32, 33 and 258 samples among random ones, on rows
+    as allocated and misaligned."""
+    x, _, md, q15 = _inputs(dev, B * 5 + L + T, B, L, 0, T)
+    n = min(B, len(LAGS))
+    lags = torch.tensor(LAGS, dtype=torch.int32, device=dev)
+    md[:n] = lags[(L + torch.arange(n, device=dev)) % len(LAGS)]
+    plain = cuda_filters.longterm_synth_plain(x, md, q15)
+    for rows in (x, _misaligned(x)):
+        out = cuda_filters.longterm_synth(rows, md, q15)
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("B,L", RAGGED_SHAPES)
+@pytest.mark.parametrize("M", [8, 4, 40, 13, 0])
+def test_lms_synth_pipeline_on_card(dev, B, L, M):
+    """K6 (the tile pipeline; the slim chain at M 4 and 8, the Lms body at
+    a run-time order, 40 the largest) where rows and tiles do not divide
+    evenly, on rows as allocated and misaligned."""
+    x, _, _, _ = _inputs(dev, B * 7 + L + M, B, L, 0, 0)
+    plain = cuda_filters.lms_synth_plain(x, M)
+    for rows in (x, _misaligned(x)):
+        out = cuda_filters.lms_synth(rows, M)
+        torch.cuda.synchronize()
+        assert torch.equal(out, plain)
 
 
 def test_encode_filters_fused_on_card_matches_stages(dev):

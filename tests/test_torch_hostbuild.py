@@ -3,7 +3,8 @@ CPU with g++ -fwrapv, against the plain PyTorch versions: the kernels'
 arithmetic checked without a card. Both the compile-time-order
 instantiations the presets take and the run-time-order one are run. K1
 runs its lane schedule (32 lanes, their shuffles, chunk carries and
-segment warm-ups), K2-K4 their tile pipelines.
+segment warm-ups), K7 its lane schedule (lag-sized steps, lanes forward
+and in reverse), K2-K4 and K6 their tile pipelines.
 Exact comparisons (integer codec, tolerance 0)."""
 
 import functools
@@ -26,12 +27,12 @@ def lib():
 
 
 ROW_ENTRIES = ("sla_host_lattice_predict", "sla_host_stage2_predict", "sla_host_synth_cascade",
-               "sla_host_fused_encode")
+               "sla_host_fused_encode", "sla_host_lms_synth", "sla_host_longterm_synth")
 
 
 def _call(lib, fn, x, *args):
-    """Runs a host entry on (B, L) rows: K1-K4 take them as they are, the
-    others in the (L, B) layout."""
+    """Runs a host entry on (B, L) rows: K1-K4, K6 and K7 take them as they
+    are, the others in the (L, B) layout."""
     rows = fn in ROW_ENTRIES
     x_in = np.ascontiguousarray(x if rows else x.T)
     y = np.empty_like(x_in)
@@ -100,11 +101,10 @@ def test_known_parameter_bodies_match_plain(lib, p, T, M, fixed, full_range):
     k1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, 0, fixed, 0)
     assert np.array_equal(k1, cuda_filters.lattice_predict_plain(X, C, False).numpy())
 
-    k6 = _call(lib, "sla_host_lms_synth", x, B, L, M, fixed)
+    k6 = _call(lib, "sla_host_lms_synth", x, B, L, M, fixed, 0)
     assert np.array_equal(k6, cuda_filters.lms_synth_plain(X, M).numpy())
 
-    hist = np.zeros((L, B), np.int32)
-    k7 = _call(lib, "sla_host_longterm_synth", x, hist, md, q15, B, L, T, fixed)
+    k7 = _call(lib, "sla_host_longterm_synth", x, md, q15, B, L, T, fixed, 0)
     assert np.array_equal(k7, cuda_filters.longterm_synth_plain(X, MD, Q).numpy())
 
 
@@ -122,10 +122,9 @@ def test_split_bodies_round_trip(lib):
         r = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, emphasis, 1, 0)
         assert np.array_equal(_call(lib, "sla_host_lattice_synth", r, coef, B, L, p, emphasis, 1), x)
     r = _call(lib, "sla_host_stage2_predict", x, no_md, no_q, B, L, 0, M, 1)
-    assert np.array_equal(_call(lib, "sla_host_lms_synth", r, B, L, M, 1), x)
+    assert np.array_equal(_call(lib, "sla_host_lms_synth", r, B, L, M, 1, 0), x)
     r = _call(lib, "sla_host_stage2_predict", x, md, q15, B, L, T, 0, 1)
-    hist = np.zeros((L, B), np.int32)
-    assert np.array_equal(_call(lib, "sla_host_longterm_synth", r, hist, md, q15, B, L, T, 1), x)
+    assert np.array_equal(_call(lib, "sla_host_longterm_synth", r, md, q15, B, L, T, 1, 0), x)
     r = _call(lib, "sla_host_fused_encode", x, coef, md, q15, B, L, p, T, M, 1, 0)
     out = _call(lib, "sla_host_synth_cascade", r, coef, md, q15, B, L, p, T, M, 1)
     assert np.array_equal(out, x)
@@ -243,3 +242,61 @@ def test_encode_pipeline_matches_plain(lib, B, L, p, T, M, fixed, reverse):
     x, coef, md, q15, plain = _encode_case(B, L, p, T, M)
     k4 = _call(lib, "sla_host_fused_encode", x, coef, md, q15, B, L, p, T, M, fixed, reverse)
     assert np.array_equal(k4, plain)
+
+
+# -- K6 as a tile pipeline (filters.cuh LmsSynthPipe: the steps computed
+# sample-parallel one iteration ahead of the chain; LmsSynthChain at M 4 and
+# 8, the Lms body at a run-time order) --------------------------------------
+
+LMS_SYNTH_ORDERS = [0, 1, 2, 4, 8, 13, 40]
+# TILED_SHAPES hold L < M (1 and 37 samples against M 40) and ragged tiles
+LMS_SYNTH_SHAPES = TILED_SHAPES + [(3, 5)]
+
+
+@functools.lru_cache(maxsize=None)
+def _lms_synth_case(B, L, M):
+    x, _, _, _ = _tiled_inputs(B * 3 + L + M, B, L, 0, 0)
+    return x, cuda_filters.lms_synth_plain(torch.from_numpy(x), M).numpy()
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("fixed", [1, 0])
+@pytest.mark.parametrize("M", LMS_SYNTH_ORDERS)
+@pytest.mark.parametrize("B,L", LMS_SYNTH_SHAPES)
+def test_lms_synth_pipeline_matches_plain(lib, B, L, M, fixed, reverse):
+    """K6's roles in pipeline order, then in reverse: a step tile read in
+    the iteration that writes it fails the second. Full-range rows with
+    INT32_MIN samples (the step's magnitude is 2^31 there)."""
+    x, plain = _lms_synth_case(B, L, M)
+    k6 = _call(lib, "sla_host_lms_synth", x, B, L, M, fixed, reverse)
+    assert np.array_equal(k6, plain)
+
+
+# -- K7 as a lane schedule (filters.cuh longterm_row: a warp per row, steps of
+# min(d, 128) samples, d = max(1, md - T + 1) the smallest live lag) --------
+
+LONGTERM_TAPS = [0, 1, 3, 5]
+
+
+@functools.lru_cache(maxsize=None)
+def _longterm_case(B, L, T):
+    x, _, md, q15 = _tiled_inputs(B * 11 + L + T, B, L, 0, T)
+    if T and B > 20:  # steps of 31, 32, 33 and 127-129 samples, and the largest step
+        md[13:21] = np.array([31, 32, 33, 34, 35, 130, 131, 132], np.int32) + T - 1
+    plain = cuda_filters.longterm_synth_plain(*(torch.from_numpy(a) for a in (x, md, q15)))
+    return x, md, q15, plain.numpy()
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("fixed", [1, 0])
+@pytest.mark.parametrize("T", LONGTERM_TAPS)
+@pytest.mark.parametrize("B,L", TILED_SHAPES)
+def test_longterm_lanes_match_plain(lib, B, L, T, fixed, reverse):
+    """K7's lanes of each step forward, then in reverse: a lane that reads
+    a sample written in its own step fails one of the two. Delays 0 (no
+    stage), 1-9 (taps at or ahead of n at T 3 and 5), steps around 32 and
+    128 samples, 256-258; full-range rows with INT32_MIN samples; the rows
+    share one ring, so a slot read before it was written fails too."""
+    x, md, q15, plain = _longterm_case(B, L, T)
+    k7 = _call(lib, "sla_host_longterm_synth", x, md, q15, B, L, T, fixed, reverse)
+    assert np.array_equal(k7, plain)

@@ -1,7 +1,11 @@
 """The port's seven kernel functions, run through their plain PyTorch
 versions, against sla_tpu's Pallas kernels in interpret mode (as
-tests/test_pallas.py runs them on the CPU), on (2048, 128) cases.
+tests/test_pallas.py runs them on the CPU), on 128 rows x 2,048 samples;
+and K6's and K7's kernel code, through its g++ build (csrc/filters_host.cpp:
+K6's tile pipeline, K7's lane schedule), against the same Pallas functions.
 Exact comparisons: an integer codec, tolerance 0."""
+
+import shutil
 
 import numpy as np
 import pytest
@@ -17,7 +21,7 @@ from sla_tpu.kernels.pallas_filters import (
 from sla_tpu.pipeline import _longterm_window_plan
 
 from sla_tpu_torch import params
-from sla_tpu_torch.kernels import cuda_filters
+from sla_tpu_torch.kernels import build, cuda_filters
 
 B, L = TILE_B, TILE_L  # (2048 samples, 128 rows)
 
@@ -151,3 +155,57 @@ def test_k7_matches_longterm_synth_tl(T, windowed):
     ref[perm] = ref_sorted
     out = cuda_filters.longterm_synth(_t(res), md, q15)
     assert np.array_equal(out.numpy(), ref)
+
+
+# -- K6 and K7's kernel code (the g++ build) against the Pallas functions ----
+
+
+@pytest.fixture(scope="module")
+def host():
+    if shutil.which("g++") is None:
+        pytest.skip("g++ unavailable")
+    return build.host_library()
+
+
+def _host_rows(lib, fn, x, *args):
+    """Runs a host entry on (B, L) rows and returns its (B, L) output."""
+    x = np.ascontiguousarray(x, dtype=np.int32)
+    y = np.empty_like(x)
+    keep = [np.ascontiguousarray(a) if isinstance(a, np.ndarray) else a for a in args]
+    getattr(lib, fn)(x.ctypes.data, y.ctypes.data,
+                     *[a.ctypes.data if isinstance(a, np.ndarray) else a for a in keep])
+    return y
+
+
+@pytest.mark.parametrize("M,fixed,reverse", [(8, 1, 0), (8, 1, 1), (4, 1, 0), (4, 1, 1),
+                                             (8, 0, 0), (13, 0, 1)])
+def test_k6_kernel_code_matches_lms_filter_tl_synth(host, M, fixed, reverse):
+    """K6's pipeline, with its slim chain (M 4 and 8, fixed) or the Lms body
+    (run-time order), roles in pipeline order and in reverse."""
+    rng = np.random.default_rng(80 + M)
+    data = rng.integers(-(1 << 20), 1 << 20, (B, L), dtype=np.int32)
+    data[0, ::13] = -(2**31)
+    ref = np.asarray(lms_filter_tl(jnp.asarray(data.T), M, synthesize=True, interpret=True)).T
+    out = _host_rows(host, "sla_host_lms_synth", data, B, L, M, fixed, reverse)
+    assert np.array_equal(out, ref)
+
+
+@pytest.mark.parametrize("T,fixed,reverse", [(1, 1, 0), (1, 1, 1), (3, 1, 1), (3, 0, 0),
+                                             (5, 0, 1)])
+def test_k7_kernel_code_matches_longterm_synth_tl(host, T, fixed, reverse):
+    """K7's lane schedule, lanes forward and in reverse, on pitches 3-256
+    (steps of 1 to 128 samples; pitch >= 3 keeps every tap behind n, where
+    the Pallas ring and the scan twin agree, ROADMAP Queue 3)."""
+    rng = np.random.default_rng(90 + T)
+    res = rng.integers(-(1 << 20), 1 << 20, (B, L), dtype=np.int32)
+    pitch = rng.integers(3, 257, B).astype(np.int32)
+    pitch[:12] = [3, 4, 5, 6, 7, 8, 33, 34, 35, 130, 131, 256]
+    pitch[12::9] = 0
+    ltm = rng.integers(-32768, 32768, (B, T), dtype=np.int32) << 16
+    md, q15 = params.longterm_params(pitch, ltm, T)
+    prm = np.concatenate([md.numpy()[:, None], q15.numpy()], axis=1)
+    ref = np.asarray(longterm_synth_tl(jnp.asarray(res.T), jnp.asarray(prm.T), T,
+                                       interpret=True)).T
+    out = _host_rows(host, "sla_host_longterm_synth", res, md.numpy(), q15.numpy(),
+                     B, L, T, fixed, reverse)
+    assert np.array_equal(out, ref)
