@@ -9,18 +9,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. environment: the card, its clocks, torch and CUDA versions, and three
    builds started together: the kernels' nvcc build (from csrc/ in this
    checkout), the port's native host library (sla_tpu_torch/native, g++)
-   and, where build/parent_csrc/ holds the previous kernels' sources, those
-   for the before/after times of phase 2;
+   and, where build/parent/sla_tpu_torch/ holds the previous commit's
+   package (git archive <commit> sla_tpu_torch | tar -x -C build/parent),
+   its kernels, through its own build.py, for the before/after times of
+   phase 2;
 2. kernels: K1-K7 against their plain PyTorch versions on the card, exact,
    at the main path's shape (2,048 rows x 12,288 samples, p 16, T 1, M 8)
    and at p 32, T 3, M 8, L 16,384; kernel and plain times by CUDA events,
    each kernel's bound (int32 operations or bytes, whichever takes longer
-   at the card's peak), and the fused encode (K4) against K1 + K2; K6 and
-   K7 also timed raw (ctypes, without the wrappers' checks), and K7 again,
-   exact too, on rows whose lags are all 32 or more; every kernel's ptxas
-   resources and the shared memory of K2-K4, K6 and K7, and K1-K7's times
-   beside the previous kernels' on the same inputs (previous, new, new,
-   previous) when those were built;
+   at the card's peak), and the fused encode (K4) against K1 + K2; K5, K6
+   and K7 also timed raw (ctypes, without the wrappers' checks), and K7
+   again, exact too, on rows whose lags are all 32 or more; every kernel's
+   ptxas resources and the shared memory of K2-K4, K6 and K7, and K1-K7's
+   times beside the previous commit's kernels on the same inputs
+   (previous, new, new, previous), each called through its own commit's
+   wrappers, when that package was unpacked;
 3. slice: five minutes of seeded CD stereo (44.1 kHz, 16 bit) at preset 2
    through Encoder/Decoder(backend='device', device='cuda') — the stream
    must equal backend='host' byte for byte and decode to the exact PCM —
@@ -37,7 +40,7 @@ sla_tpu.
 
 from __future__ import annotations
 
-import ctypes
+import importlib
 import json
 import os
 import pathlib
@@ -45,6 +48,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -67,9 +71,10 @@ KERNELS = {  # wrapper name -> (Pallas function it replaces, file:line)
 SLICE_KERNELS = ("lattice_predict", "stage2_predict", "synth_cascade")  # phase 3's path
 SOURCE = "sla_tpu_torch/csrc/filters.cu"
 ROOT = pathlib.Path(__file__).resolve().parent
-# the previous kernels' csrc/, copied there (gitignored) for the before/after
-# times; a plain checkout has none and skips that comparison
-PARENT = ROOT / "build" / "parent_csrc"
+# the previous commit's sla_tpu_torch/, unpacked there (gitignored) for the
+# before/after times (git archive <commit> sla_tpu_torch | tar -x -C
+# build/parent); a plain checkout has none and skips that comparison
+PARENT = ROOT / "build" / "parent"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak bandwidth
 # int32 operations an SM can issue per clock: four schedulers, one 32-lane
 # instruction each. The CUDA guide's 64 a clock is per class of integer
@@ -95,34 +100,30 @@ def clocks() -> tuple[float, float]:
     return cur, top
 
 
-def parent_library():
-    """The previous kernels (build/parent_csrc/filters.cu, the sources of
-    the commit before K6's and K7's redesign) with their C signatures, or
-    None when their sources are not there."""
-    from sla_tpu_torch.kernels import build
-
-    src = PARENT / "filters.cu"
-    if not src.exists():
+def load_parent(root: pathlib.Path = PARENT, name: str = "sla_tpu_torch_previous"):
+    """The previous commit's `kernels.cuda_filters`, imported from
+    `root`/sla_tpu_torch/ (an archive of that commit's package) as the
+    package `name`, or None when the archive is not there. Its top-level
+    __init__ does not run, its relative imports resolve inside the archive,
+    and its build.py builds its own csrc/ with its own C signatures into
+    `root`/build/sla_tpu_torch/; its wrappers make their own layouts. The
+    port's own `sla_tpu_torch` in sys.modules stays as it is."""
+    pkg_dir = root / "sla_tpu_torch"
+    if not (pkg_dir / "kernels" / "cuda_filters.py").exists():
         return None
-    path = build.build_library(
-        "sla_filters_parent", [build.nvcc_path()] + build.NVCC_FLAGS + ["-I", str(PARENT)],
-        [src], deps=sorted(PARENT.iterdir()),
-    )
-    lib = ctypes.CDLL(str(path))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    sigs = {
-        "sla_lattice_predict": [vp, vp, vp, i, i, i, i, vp],  # (B, L)
-        "sla_stage2_predict": [vp, vp, vp, vp, i, i, i, i, vp],  # (B, L)
-        "sla_synth_cascade": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],  # (B, L)
-        "sla_fused_encode": [vp, vp, vp, vp, vp, i, i, i, i, i, vp],  # (B, L)
-        "sla_lattice_synth": [vp, vp, vp, i, i, i, i, vp],  # (L, B)
-        "sla_lms_synth": [vp, vp, i, i, i, vp],  # (L, B)
-        "sla_longterm_synth": [vp, vp, vp, vp, vp, i, i, i, vp],  # (L, B), hist
-    }
-    for name, argtypes in sigs.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, i
-    return lib
+    if name not in sys.modules:
+        pkg = types.ModuleType(name)
+        pkg.__path__ = [str(pkg_dir)]
+        sys.modules[name] = pkg
+    return importlib.import_module(f"{name}.kernels.cuda_filters")
+
+
+def parent_library():
+    """The previous kernels' wrappers with their library built, or None."""
+    prev = load_parent()
+    if prev is not None:
+        prev.cuda_library()
+    return prev
 
 
 def phase_environment() -> dict:
@@ -145,15 +146,19 @@ def phase_environment() -> dict:
                                "(g++ -O3, sla_tpu_torch/native/sla_native.cpp)")
         parent_lib = parent.result()
     builds_s = time.perf_counter() - t0
+    if parent_lib is not None:
+        prev_build = importlib.import_module(f"{parent_lib.__package__}.build")
+        parent_note = ("kernels (build/parent/sla_tpu_torch, through their own wrappers) nvcc "
+                       f"{prev_build.build_seconds.get('sla_filters_cuda', 0.0):.1f} s")
+    else:
+        parent_note = "kernels' package absent: no before/after times"
     ptxas = [ln.strip() for ln in build.build_log().splitlines() if "registers" in ln]
     log("env", f"{card} | {torch.cuda.get_device_name(0)}, {sms} SMs, clocks.sm {clock:.0f} MHz "
         f"(max {clock_max:.0f}) | torch {torch.__version__} cuda {torch.version.cuda}")
     log("env", f"builds {builds_s:.1f} s together: nvcc {build.build_seconds.get('sla_filters_cuda', 0.0):.1f} s "
         f"(loaded after {nvcc_done:.1f} s); native host library sla_tpu_torch/native/sla_native.cpp "
         f"-> build/sla_tpu_torch/, g++ {build.build_seconds.get('sla_native', 0.0):.1f} s; previous "
-        + ("kernels (build/parent_csrc) nvcc "
-           f"{build.build_seconds.get('sla_filters_parent', 0.0):.1f} s" if parent_lib
-           else "kernels' sources absent: no before/after times"))
+        + parent_note)
     for ln in ptxas:
         log("env", f"ptxas {ln}")
     peak = INT32_LANES_PER_SM * sms * clock_max * 1e6
@@ -225,8 +230,8 @@ def bound(name, B, L, p, T, M, md, int32_per_s) -> tuple[float, str]:
 
 def pipe_resources(lib) -> None:
     """Every kernel's ptxas registers, stack and spills per instantiation,
-    the pipelines' (K2-K4, K6) dynamic shared memory per block and K7's
-    static rings."""
+    the pipelines' (K2-K4, K6) dynamic shared memory per block and K5's and
+    K7's static rings."""
     from sla_tpu_torch.kernels import build
 
     names = ("lattice_predict|stage2_predict|synth_cascade|fused_encode|lattice_synth|"
@@ -245,62 +250,55 @@ def pipe_resources(lib) -> None:
     log("kernels", f"dynamic shared memory per block: stage2_predict {lib.sla_pipe_shared_bytes(2)} B, "
         f"synth_cascade {lib.sla_pipe_shared_bytes(3)} B, "
         f"fused_encode {lib.sla_pipe_shared_bytes(4)} B, "
-        f"lms_synth {lib.sla_pipe_shared_bytes(6)} B; static: longterm_synth "
+        f"lms_synth {lib.sla_pipe_shared_bytes(6)} B; static: lattice_synth "
+        f"{lib.sla_pipe_shared_bytes(5)} B up to p 32 (one warp's rings), longterm_synth "
         f"{lib.sla_pipe_shared_bytes(7)} B (four rows' rings)")
 
 
-def ctypes_call(lib, fn, data, *args, transpose: bool = False):
-    """fn of `lib` on `data` through ctypes alone, without the wrappers'
-    argument checks; transpose: the kernel takes the (L, B) layout, so the
-    rows are transposed in and out around it."""
-    x_in = data.t().contiguous() if transpose else data
-    y = torch.empty_like(x_in)
+def ctypes_call(lib, fn, data, *args):
+    """fn of `lib` on the (B, L) rows `data` through ctypes alone, without
+    the wrappers' argument checks."""
+    y = torch.empty_like(data)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    err = getattr(lib, fn)(x_in.data_ptr(), y.data_ptr(), *ptrs,
+    err = getattr(lib, fn)(data.data_ptr(), y.data_ptr(), *ptrs,
                            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{fn}: cudaError {err}")
-    return y.t().contiguous() if transpose else y
+    return y
 
 
-UNCHANGED = ("lattice_predict", "stage2_predict", "synth_cascade", "fused_encode", "lattice_synth")
+# the kernels whose code this commit did not change: their ratio must read
+# 1.00 within 3 %
+UNCHANGED = ("lattice_predict", "stage2_predict", "synth_cascade", "fused_encode", "lms_synth",
+             "longterm_synth")
+
+
+def kernel_calls(cf, x, coef, md, q15, r1, M) -> dict:
+    """Each of K1-K7 of the wrapper module `cf` on these inputs, by name,
+    through the public wrapper signatures (stable since K4-K7 came)."""
+    return {
+        "lattice_predict": lambda: cf.lattice_predict(x, coef),
+        "stage2_predict": lambda: cf.stage2_predict(r1, md, q15, M),
+        "synth_cascade": lambda: cf.synth_cascade(x, coef, md, q15, M),
+        "fused_encode": lambda: cf.fused_encode(x, coef, md, q15, M),
+        "lattice_synth": lambda: cf.lattice_synth(x, coef),
+        "lms_synth": lambda: cf.lms_synth(x, M),
+        "longterm_synth": lambda: cf.longterm_synth(x, md, q15),
+    }
 
 
 def parent_times(parent, x, coef, md, q15, r1, M, reps: int = 5) -> dict:
     """The previous K1-K7 against the new ones on the same inputs, in the
     order previous, new, new, previous; both must give the same rows. Both
-    are called through ctypes alone, without the wrappers' argument checks.
-    K1-K4 take the (B, L) rows on both sides, and K5 the (L, B) layout,
-    made once beforehand: these five did not change, so their ratio must
-    read 1.00 within 3 %. The previous K6 and K7 ran one thread per row over
-    (L, B), so their times include the two transposes and K7's (L, B)
-    history scratch that their wrapper added."""
-    from sla_tpu_torch.kernels import build
+    are called through their own commit's wrappers, which make whatever
+    layout their kernels take (the previous K5's two transposes included)."""
+    from sla_tpu_torch.kernels import cuda_filters as cf
 
-    lib = build.cuda_library()
-    B, L = x.shape
-    p, T = coef.shape[1], q15.shape[1]
-    x_t = x.t().contiguous()
-
-    def old_longterm():
-        hist = torch.empty((L, B), dtype=torch.int32, device=x.device)
-        return ctypes_call(parent, "sla_longterm_synth", x, hist, md, q15, B, L, T, transpose=True)
-
-    args = {
-        "lattice_predict": ("sla_lattice_predict", x, coef, B, L, p, 1),
-        "stage2_predict": ("sla_stage2_predict", r1, md, q15, B, L, T, M),
-        "synth_cascade": ("sla_synth_cascade", x, coef, md, q15, B, L, p, T, M),
-        "fused_encode": ("sla_fused_encode", x, coef, md, q15, B, L, p, T, M),
-        "lattice_synth": ("sla_lattice_synth", x_t, coef, B, L, p, 1),
-    }
-    pairs = {name: (lambda a=a: ctypes_call(parent, *a), lambda a=a: ctypes_call(lib, *a))
-             for name, a in args.items()}
-    pairs["lms_synth"] = (lambda: ctypes_call(parent, "sla_lms_synth", x, B, L, M, transpose=True),
-                          lambda: ctypes_call(lib, "sla_lms_synth", x, B, L, M))
-    pairs["longterm_synth"] = (old_longterm,
-                               lambda: ctypes_call(lib, "sla_longterm_synth", x, md, q15, B, L, T))
+    prev_calls = kernel_calls(parent, x, coef, md, q15, r1, M)
+    new_calls = kernel_calls(cf, x, coef, md, q15, r1, M)
     out = {}
-    for name, (prev, new) in pairs.items():
+    for name in new_calls:
+        prev, new = prev_calls[name], new_calls[name]
         if not torch.equal(prev(), new()):
             raise AssertionError(f"{name}: the previous and the new kernel differ")
         t = [cuda_ms(f, reps, warmup=1) for f in (prev, new, new, prev)]
@@ -335,24 +333,19 @@ def phase_kernels(env: dict) -> dict:
         x, coef, md, q15 = kernel_inputs(B + L + p, B, L, p, T)
         md_np = md.cpu().numpy()
         r1 = cf.lattice_predict_plain(x, coef)
-        cases = {
-            "lattice_predict": (lambda: cf.lattice_predict(x, coef),
-                                lambda: cf.lattice_predict_plain(x, coef)),
-            "stage2_predict": (lambda: cf.stage2_predict(r1, md, q15, M),
-                               lambda: cf.stage2_predict_plain(r1, md, q15, M)),
-            "synth_cascade": (lambda: cf.synth_cascade(x, coef, md, q15, M),
-                              lambda: cf.synth_cascade_plain(x, coef, md, q15, M)),
-            "fused_encode": (lambda: cf.fused_encode(x, coef, md, q15, M),
-                             lambda: cf.fused_encode_plain(x, coef, md, q15, M)),
-            "lattice_synth": (lambda: cf.lattice_synth(x, coef),
-                              lambda: cf.lattice_synth_plain(x, coef)),
-            "lms_synth": (lambda: cf.lms_synth(x, M), lambda: cf.lms_synth_plain(x, M)),
-            "longterm_synth": (lambda: cf.longterm_synth(x, md, q15),
-                               lambda: cf.longterm_synth_plain(x, md, q15)),
+        kernels = kernel_calls(cf, x, coef, md, q15, r1, M)
+        plains = {
+            "lattice_predict": lambda: cf.lattice_predict_plain(x, coef),
+            "stage2_predict": lambda: cf.stage2_predict_plain(r1, md, q15, M),
+            "synth_cascade": lambda: cf.synth_cascade_plain(x, coef, md, q15, M),
+            "fused_encode": lambda: cf.fused_encode_plain(x, coef, md, q15, M),
+            "lattice_synth": lambda: cf.lattice_synth_plain(x, coef),
+            "lms_synth": lambda: cf.lms_synth_plain(x, M),
+            "longterm_synth": lambda: cf.longterm_synth_plain(x, md, q15),
         }
         shape = {}
-        for name, (kern, plain) in cases.items():
-            err, ms, plain_ms = check_kernel(name, kern, plain, reps=10)
+        for name, kern in kernels.items():
+            err, ms, plain_ms = check_kernel(name, kern, plains[name], reps=10)
             bound_ms, bound_by = bound(name, B, L, p, T, M, md_np, env["int32_per_s"])
             shape[name] = ms
             log("kernels", f"{name} B {B} L {L} p {p} T {T} M {M}: exact, kernel "
@@ -368,7 +361,8 @@ def phase_kernels(env: dict) -> dict:
         log("kernels", f"B {B} L {L}: fused_encode {shape['fused_encode']:.3f} ms against "
             f"lattice_predict + stage2_predict {staged:.3f} ms")
         lib = build.cuda_library()
-        raw = {"lms_synth": lambda: ctypes_call(lib, "sla_lms_synth", x, B, L, M),
+        raw = {"lattice_synth": lambda: ctypes_call(lib, "sla_lattice_synth", x, coef, B, L, p, 1),
+               "lms_synth": lambda: ctypes_call(lib, "sla_lms_synth", x, B, L, M),
                "longterm_synth": lambda: ctypes_call(lib, "sla_longterm_synth", x, md, q15, B, L, T)}
         for name, fn in raw.items():
             log("kernels", f"{name} B {B} L {L} raw (ctypes): {cuda_ms(fn, 10, warmup=2):.3f} ms "

@@ -12,15 +12,14 @@
 // stencil: a warp per segment of a row, lanes over samples, read and written
 // in the (B, L) rows as they are. K7's long-term synthesis feeds back only
 // across at least its smallest lag, so it is a warp per row in lag-sized
-// steps of parallel samples (filters.cuh, "K7"). The lattice synthesis and
-// the LMS feed back every sample, so a row's chain runs in one thread: K2,
-// K3, K4 and K6 are pipelines over tiles (see below), a warp per stage, the
-// input prefetched into shared memory, the long-term history in shared
-// memory, the (B, L) rows read and written directly. K5 (off the codec's
-// path) still runs one thread per row over the sample-major (L, B) layout,
-// which its wrapper makes with two transposes: at each sample a warp's 32
-// rows read and write 128 contiguous bytes, and the sample loads are
-// batched (kLoadBatch) so their latency overlaps.
+// steps of parallel samples (filters.cuh, "K7"). The lattice synthesis
+// feeds back every sample, but a stage reads only the previous sample's
+// state of the stage below, so K5 runs its stages side by side, lanes over
+// stages, in a systolic schedule (filters.cuh, "K5"). The LMS feeds back
+// every sample through all its taps, so a row's chain runs in one thread:
+// K2, K3, K4 and K6 are pipelines over tiles (see below), a warp per stage,
+// the input prefetched into shared memory, the long-term history in shared
+// memory. Every kernel reads and writes the (B, L) rows directly.
 //
 // What bounds the sequential kernels on this card: latency. Each sample is
 // a dependent chain of about 2p + 2M multiply-adds (lattice stages, LMS
@@ -36,8 +35,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-
-inline dim3 grid_for(int B) { return dim3((unsigned)((B + kThreads - 1) / kThreads)); }
 
 // K1. Replaces sla_tpu/kernels/pallas_filters.py lattice_filter_tl
 // (synthesize=False; Pallas body _lattice_kernel) and lattice_filter_wide_tl
@@ -317,15 +314,38 @@ fused_encode_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
 // K5. Replaces pallas_filters.py lattice_filter_tl(synthesize=True)
 // (_lattice_synth_body) and lattice_filter_wide_tl(synthesize=True): PARCOR
 // lattice synthesis, then de-emphasis when EMPH (the Pallas pre_emphasis
-// flag).
-template <int P, bool EMPH>
-__global__ void __launch_bounds__(kThreads)
+// flag). Bound on this card: latency. A thread per row walks the lattice's
+// feedback at 8p + 3 instructions a sample (202 cycles a sample at p 16 on
+// the H100); this kernel walks it in steps of a shuffle round trip and a
+// chain four to six instructions deep, two steps a sample (about 120
+// cycles; tools/synth_probe.cu). A block is one warp and runs the systolic
+// schedule of filters.cuh ("K5") on 64 / G rows: lanes over stages, G lanes
+// and S stages a lane for two rows, one step of two shuffles and about
+// 6 S + 10 instructions. Every
+// order up to 32 runs at G 16, S 2 (up to 48 at S 3): 2,048 rows make 512
+// warps, about one for each of the 528 schedulers. The rows are read and
+// written in the (B, L) layout, a chunk of 32 samples a row at a time.
+template <int G, int S, bool EMPH>
+__global__ void __launch_bounds__(32)
 lattice_synth_kernel(const int32_t* __restrict__ x, int32_t* __restrict__ y,
                      const int32_t* __restrict__ coef, int B, int L, int p) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  sla::LatticeSynth<P, EMPH> step(coef + (int64_t)row * p, p);
-  sla::run_row(step, x + row, y + row, B, L);
+  __shared__ int32_t rings[sla::SysShape<G>::kWords];
+  const int64_t row0 = (int64_t)blockIdx.x * sla::SysShape<G>::kRows;
+  const sla::WarpLanes lanes{(int)threadIdx.x};
+  sla::lattice_synth_warp<G, S, EMPH>(lanes, x, y, B, L, row0, coef, p, rings, false);
+}
+
+template <class Config>
+int launch_lattice_synth(const int32_t* x, int32_t* y, const int32_t* coef, int B, int L, int p,
+                         bool emphasis, cudaStream_t s) {
+  constexpr int G = Config::G, S = Config::S;
+  const dim3 g((unsigned)(((int64_t)B + sla::SysShape<G>::kRows - 1) / sla::SysShape<G>::kRows));
+  if (emphasis) {
+    lattice_synth_kernel<G, S, true><<<g, 32, 0, s>>>(x, y, coef, B, L, p);
+  } else {
+    lattice_synth_kernel<G, S, false><<<g, 32, 0, s>>>(x, y, coef, B, L, p);
+  }
+  return (int)cudaGetLastError();
 }
 
 // K6. Replaces pallas_filters.py lms_filter_tl(synthesize=True)
@@ -419,8 +439,8 @@ int launch_pipe(void (*kernel)(KArgs...), int threads, int words, int B, cudaStr
 // (0 = cudaSuccess); it neither allocates nor synchronizes.
 extern "C" {
 
-// K1 and K5: the preset orders with emphasis are templated; emphasis off
-// (no caller on the codec's path) takes the run-time order.
+// K1: the preset orders with emphasis are templated; emphasis off (no
+// caller on the codec's path) takes the run-time order.
 int sla_lattice_predict(const int32_t* x, int32_t* y, const int32_t* coef,
                         int B, int L, int p, int emphasis, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
@@ -441,31 +461,24 @@ int sla_lattice_predict(const int32_t* x, int32_t* y, const int32_t* coef,
   return (int)cudaGetLastError();
 }
 
+// K5: the configuration that covers order p (sla::synth_config), with or
+// without de-emphasis
 int sla_lattice_synth(const int32_t* x, int32_t* y, const int32_t* coef,
                       int B, int L, int p, int emphasis, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const dim3 g = grid_for(B);
-  if (!emphasis) {
-    lattice_synth_kernel<0, false><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
-  } else if (p == 8) {
-    lattice_synth_kernel<8, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
-  } else if (p == 16) {
-    lattice_synth_kernel<16, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
-  } else if (p == 32) {
-    lattice_synth_kernel<32, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
-  } else {
-    lattice_synth_kernel<0, true><<<g, kThreads, 0, s>>>(x, y, coef, B, L, p);
-  }
-  return (int)cudaGetLastError();
+  if (sla::synth_config(p) == 32)
+    return launch_lattice_synth<sla::SynthConfig<32>>(x, y, coef, B, L, p, emphasis, s);
+  return launch_lattice_synth<sla::SynthConfig<48>>(x, y, coef, B, L, p, emphasis, s);
 }
 
 // Shared memory of a kernel's block, in bytes: 2, 3, 4 and 6 for the
-// pipelines K2, K3, K4 and K6 (dynamic), 7 for K7's rings (static), 0
-// otherwise.
+// pipelines K2, K3, K4 and K6 (dynamic), 5 for K5's rings up to p 32 and 7 for
+// K7's (static), 0 otherwise.
 int sla_pipe_shared_bytes(int kernel) {
   const int words = kernel == 2 ? sla::Stage2Pipe::kWords
                   : kernel == 3 ? sla::SynthPipe::kWords
                   : kernel == 4 ? sla::EncodePipe::kWords
+                  : kernel == 5 ? sla::SysShape<sla::SynthConfig<32>::G>::kWords
                   : kernel == 6 ? sla::LmsSynthPipe::kWords
                   : kernel == 7 ? kWarps * sla::kLtRing : 0;
   return words * (int)sizeof(int32_t);

@@ -1,7 +1,7 @@
 // Bodies and schedules of the seven filter kernels (filters.cu), written
 // once as __host__ __device__ code: nvcc builds them into the CUDA kernels,
 // and a host build (filters_host.cpp, g++ -fwrapv) runs the same code on the
-// CPU, K1's and K7's lanes and K2-K4's and K6's tile pipelines included, so
+// CPU, K1's, K5's and K7's lanes and K2-K4's and K6's tile pipelines included, so
 // the tests can hold it against the plain PyTorch versions without a card.
 //
 // Semantics are the reference's (src/SLAPredictor.c), as sla_tpu's scan
@@ -40,7 +40,6 @@ constexpr int kMaxLms = 40;
 constexpr int kMaxTaps = 5;
 constexpr int kEmphasisShift = 5;  // PRE_EMPHASIS_SHIFT
 constexpr int kEmphasisCoef = (1 << kEmphasisShift) - 1;  // 31
-constexpr int kLoadBatch = 8;  // samples loaded together per row (run_row)
 
 SLA_HD int32_t wadd(int32_t a, int32_t b) { return (int32_t)((uint32_t)a + (uint32_t)b); }
 SLA_HD int32_t wsub(int32_t a, int32_t b) { return (int32_t)((uint32_t)a - (uint32_t)b); }
@@ -133,17 +132,32 @@ struct Lattice {
 // (WarpLanes) a thread holds one lane and rotate() is a shuffle; the host
 // build (HostLanes) holds all 32 lanes of a warp in arrays and moves the
 // values between them, so the CPU tests run the kernels' lane schedule.
-// rotate(v): lane l receives lane (l - 1) mod 32's value, so lane 0 gets
-// lane 31's. lane(i): the lane of the i-th value this thread holds. sync():
-// the warp's lanes meet, and their shared-memory writes become visible to
-// each other (the host build runs its lanes one after another already).
+// rotate<W>(v): within each group of W lanes (lanes g W .. g W + W - 1),
+// lane l receives the value of the lane before it, and the group's first
+// lane that of its last; W = 32 rotates the whole warp (lane 0 gets lane
+// 31's). rotate_back<W>(v): the other direction, lane l receives the value
+// of the lane after it and the group's last lane that of its first.
+// lane(i): the lane of the i-th value this thread holds. sync(): the warp's
+// lanes meet, and their shared-memory writes become visible to each other
+// (the host build runs its lanes one after another already).
 struct HostLanes {
   static constexpr int kCount = 32;
   int lane(int i) const { return i; }
+  template <int W = 32>
   void rotate(int32_t* v) const {
-    const int32_t last = v[31];
-    for (int l = 31; l > 0; --l) v[l] = v[l - 1];
-    v[0] = last;
+    for (int g = 0; g < 32; g += W) {
+      const int32_t last = v[g + W - 1];
+      for (int l = W - 1; l > 0; --l) v[g + l] = v[g + l - 1];
+      v[g] = last;
+    }
+  }
+  template <int W = 32>
+  void rotate_back(int32_t* v) const {
+    for (int g = 0; g < 32; g += W) {
+      const int32_t first = v[g];
+      for (int l = 0; l < W - 1; ++l) v[g + l] = v[g + l + 1];
+      v[g + W - 1] = first;
+    }
   }
   void sync() const {}
 };
@@ -153,9 +167,16 @@ struct WarpLanes {
   static constexpr int kCount = 1;
   int self;
   SLA_HD int lane(int) const { return self; }
+  template <int W = 32>
   SLA_HD void rotate(int32_t* v) const {
 #if defined(__CUDA_ARCH__)
-    v[0] = __shfl_sync(0xffffffffu, v[0], (self + 31) & 31);
+    v[0] = __shfl_sync(0xffffffffu, v[0], (self & ~(W - 1)) | ((self + W - 1) & (W - 1)));
+#endif
+  }
+  template <int W = 32>
+  SLA_HD void rotate_back(int32_t* v) const {
+#if defined(__CUDA_ARCH__)
+    v[0] = __shfl_sync(0xffffffffu, v[0], (self & ~(W - 1)) | ((self + 1) & (W - 1)));
 #endif
   }
   SLA_HD void sync() const {
@@ -363,7 +384,8 @@ struct Lms {
   }
 };
 
-// K5: lattice synthesize -> de-emphasis (when EMPH)
+// lattice synthesize -> de-emphasis (when EMPH), one sample after another:
+// K3's lattice role
 template <int P, bool EMPH>
 struct LatticeSynth {
   Lattice<P> lattice;
@@ -384,25 +406,6 @@ struct LmsStep {
 };
 template <int M>
 using LmsSynth = LmsStep<M, true>;
-
-// Runs one row through `step` in sample order (K5, and the host build's
-// LMS alone). x and y are the row's first samples in the sample-major
-// (L, B) layout, so consecutive samples are `stride` (= B) apart. Samples
-// are loaded kLoadBatch at a time so their memory latencies overlap
-// instead of stalling every sample.
-template <class Step>
-SLA_HD void run_row(Step& step, const int32_t* x, int32_t* y, int64_t stride, int L) {
-  for (int n0 = 0; n0 < L; n0 += kLoadBatch) {
-    int32_t xs[kLoadBatch];
-    SLA_UNROLL
-    for (int u = 0; u < kLoadBatch; ++u)
-      xs[u] = n0 + u < L ? x[(int64_t)(n0 + u) * stride] : 0;
-    SLA_UNROLL
-    for (int u = 0; u < kLoadBatch; ++u) {
-      if (n0 + u < L) y[(int64_t)(n0 + u) * stride] = step(xs[u], n0 + u);
-    }
-  }
-}
 
 // -- K2, K3 and K4 as pipelines over tiles -----------------------------------
 //
@@ -743,6 +746,218 @@ SLA_HD void longterm_row(const Lanes& lanes, const int32_t* x, int32_t* y, int L
     }
     lanes.sync();
   }
+}
+
+// -- K5: the lattice synthesis as a systolic schedule, lanes over stages -----
+//
+// At sample n, stage k (from p - 1 down to 0) computes
+//   f_k[n] = f_{k+1}[n] + q(c_k, b_k[n-1]),   b_{k+1}[n] = b_k[n-1] - q(c_k, f_k[n]),
+// with f_p[n] = x[n] and b_0[n] = f_0[n], the output. The term q(c_k,
+// b_k[n-1]) reads only the previous sample, so what one sample hands the
+// next is a few instructions deep, not 8p: the stages can run side by side.
+// A row takes G lanes of a warp, lane k holding the S stages kS .. kS + S - 1
+// (G S >= p; a stage at or above p has c = 0, which is exactly the identity,
+// q(0, v) = 0), and lane k works on sample n at step 2n + G - 1 - k. At step
+// t lane k then needs f_{(k+1)S}[n] from lane k + 1 and b_{kS}[n-1] from lane
+// k - 1, both made at step t - 1: every step each lane runs its stages once,
+// then f moves down one lane (rotate_back) and b up one lane (rotate). The
+// top lane takes x[n] in place of the f it receives, which is lane 0's f
+// (rotate_back wraps within the group), and hands that f on in place of its
+// own b, which no stage reads: it is b_0 of the sample lane 0 just made, and
+// it reaches lane 0 again two steps later, just when lane 0 needs it. Lane
+// 0's f is the output, and lane 0 runs the de-emphasis. A row gives a lane
+// work every other step, so two rows share a group's lanes on opposite
+// parities: row A (2g for group g) at steps 2n + G - 1 - k, row B (2g + 1)
+// one step later. A warp holds 32 / G groups, 64 / G rows. Nothing is
+// re-associated but wrapping int32 additions, which are exact in any order:
+// every stage computes the values of the sequential Lattice from the same
+// operands.
+//
+// The warp loads its rows' input kSysChunk samples a row at a time (32
+// consecutive samples of one row per load) two chunks ahead of the steps and
+// stages them into a two-chunk ring per row in shared memory, which the top
+// lanes read one pair of steps ahead. Every lane de-emphasizes its f and
+// writes it into two-chunk rings of its own, one per parity, at a slot that
+// is the same for all lanes, so a step's store is one instruction and no
+// branch; the warp stores the rings of each group's lane 0 to the rows a
+// chunk at a time, once every row has passed it.
+
+constexpr int kSysChunk = 32;                  // K5: samples a row per load and store
+constexpr int kSysRing = 2 * kSysChunk;        // K5: slots of a ring, input or output
+constexpr int kSysPitch = kSysRing + 1;        // input rings of different rows: other banks
+constexpr int kSysLanePitch = 2 * kSysRing + 1;  // a lane's two output rings: other banks
+
+// K5's rows per warp and shared-memory words per warp, at G lanes a row pair
+template <int G>
+struct SysShape {
+  static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0, "row pairs of 2, 4, .. 32 lanes");
+  static constexpr int kRows = 64 / G;
+  static constexpr int kWords = kRows * kSysPitch + 32 * kSysLanePitch;
+};
+
+// K5's configuration for the orders up to C: G lanes a row pair, S stages a
+// lane; synth_config(p) is the C that takes order p, an order below C with
+// its upper stages' coefficients 0. A step costs its shuffles and its chain
+// whatever the order, so the fastest configuration of the whole kernel on
+// the H100 (synth_probe.cu; PERF.md) takes every order up to 32, the
+// presets' 8, 16 and 32 included.
+template <int C>
+struct SynthConfig;
+template <>
+struct SynthConfig<32> {
+  static constexpr int G = 16, S = 2;
+};
+template <>
+struct SynthConfig<48> {
+  static constexpr int G = 16, S = 3;
+};
+SLA_HD int synth_config(int p) { return p <= 32 ? 32 : 48; }
+
+// One row's stages kS .. kS + S - 1 in one lane.
+template <int S>
+struct SysStages {
+  int32_t c[S];
+  int32_t b[S];    // b[j] = b_{kS+j} of the row's previous sample, j >= 1 (b_{kS} comes in)
+  int32_t de = 0;  // lane 0: the de-emphasis state
+
+  // The stages on one sample: fin = f_{(k+1)S}[n], bin = b_{kS}[n-1].
+  // Returns f_{kS}[n] and sets bout = b_{(k+1)S}[n].
+  SLA_HD int32_t step(int32_t fin, int32_t bin, int32_t& bout) {
+    int32_t m[S];
+    SLA_UNROLL
+    for (int j = 0; j < S; ++j) m[j] = qmul(c[j], j ? b[j] : bin);
+    int32_t f = wadd(fin, m[S - 1]);
+    bout = wsub(S > 1 ? b[S - 1] : bin, qmul(c[S - 1], f));
+    int32_t upper = m[S - 1];  // m[S-1] + .. + m[1]: the output waits on bin's term alone
+    SLA_UNROLL
+    for (int j = S - 2; j >= 0; --j) {
+      f = wadd(f, m[j]);
+      b[j + 1] = wsub(j ? b[j] : bin, qmul(c[j], f));
+      if (j) upper = wadd(upper, m[j]);
+    }
+    return S > 1 ? wadd(wadd(fin, upper), m[0]) : f;
+  }
+};
+
+// K5 on the rows row0 .. row0 + 64/G - 1 (those below B) of the (B, L)
+// rows x -> y, coefficients coef (B, p), with `smem` (SysShape<G>::kWords)
+// for the warp's rings. reverse runs each step's lanes in reverse order
+// (host build only; one lane a thread on the card): a lane that read a value
+// written in its own step would then read another.
+template <int G, int S, bool EMPH, class Lanes>
+SLA_HD void lattice_synth_warp(const Lanes& lanes, const int32_t* x, int32_t* y, int B, int L,
+                               int64_t row0, const int32_t* coef, int p, int32_t* smem,
+                               bool reverse) {
+  constexpr int N = Lanes::kCount, R = SysShape<G>::kRows, kMask = kSysRing - 1;
+  int32_t* in = smem;  // row r, sample n at in[r * kSysPitch + (n & kMask)]
+  // lane l's output at parity h for sample n at out[l * kSysLanePitch + h * kSysRing + (n & kMask)]
+  int32_t* out = smem + R * kSysPitch;
+  // per lane: the stages of the row it works on at even steps (h = 0) and at
+  // odd steps (h = 1), those rows, and the values in flight
+  SysStages<S> st[N][2];
+  int row[N][2];
+  int32_t fin[N], bin[N], xq[N][2];  // xq[i][h]: the top lane's x at parity h
+  for (int i = 0; i < N; ++i) {
+    const int l = lanes.lane(i), k = l % G, pair = 2 * (l / G);
+    row[i][0] = pair + ((k & 1) ? 0 : 1);  // row A at even steps where k is odd
+    row[i][1] = pair + ((k & 1) ? 1 : 0);
+    SLA_UNROLL
+    for (int h = 0; h < 2; ++h) {
+      const int64_t r = row0 + row[i][h];
+      SLA_UNROLL
+      for (int j = 0; j < S; ++j) {
+        const int s = k * S + j;
+        st[i][h].c[j] = r < B && s < p ? coef[r * p + s] : 0;
+        st[i][h].b[j] = 0;
+      }
+    }
+    fin[i] = bin[i] = 0;
+  }
+  int32_t ahead[N][R];  // a chunk in flight: lane l holds sample l of each row
+  const auto load = [&](int ch) {
+    for (int i = 0; i < N; ++i) {
+      const int n = ch * kSysChunk + lanes.lane(i);
+      SLA_UNROLL
+      for (int r = 0; r < R; ++r)
+        ahead[i][r] = row0 + r < B && n < L ? x[(row0 + r) * L + n] : 0;
+    }
+  };
+  const auto stage = [&](int ch) {
+    for (int i = 0; i < N; ++i) {
+      const int n = ch * kSysChunk + lanes.lane(i);
+      SLA_UNROLL
+      for (int r = 0; r < R; ++r) in[r * kSysPitch + (n & kMask)] = ahead[i][r];
+    }
+  };
+  const auto store = [&](int ch) {  // row 2g + 1 (B) is lane gG's at even steps, 2g at odd
+    for (int i = 0; i < N; ++i) {
+      const int n = ch * kSysChunk + lanes.lane(i);
+      SLA_UNROLL
+      for (int r = 0; r < R; ++r) {
+        const int at = (r / 2) * G * kSysLanePitch + ((r & 1) ? 0 : kSysRing) + (n & kMask);
+        if (row0 + r < B && n < L) y[(row0 + r) * L + n] = out[at];
+      }
+    }
+  };
+  const int nchunks = (L + kSysChunk - 1) / kSysChunk;
+  load(0);
+  stage(0);
+  load(1);
+  lanes.sync();
+  for (int i = 0; i < N; ++i) {
+    SLA_UNROLL
+    for (int h = 0; h < 2; ++h) xq[i][h] = in[row[i][h] * kSysPitch];
+  }
+  // chunk ch: steps 2u, 2u + 1 for u in [ch kSysChunk, (ch + 1) kSysChunk).
+  // The top lanes take x[u] of both rows; lane 0 makes row B's sample u -
+  // G/2 and row A's u + 1 - G/2, so chunk ch - 2 is complete, and one more
+  // chunk than the rows hold completes the last.
+  for (int ch = 0; ch <= nchunks; ++ch) {
+    lanes.sync();  // the last chunk's steps are done with the slots below
+    stage(ch + 1);
+    if (ch >= 2) store(ch - 2);
+    load(ch + 2);
+    lanes.sync();
+    for (int u = ch * kSysChunk; u < (ch + 1) * kSysChunk; ++u) {
+      int32_t xn[N][2];  // the next pair's input, read a pair ahead
+      for (int i = 0; i < N; ++i) {
+        SLA_UNROLL
+        for (int h = 0; h < 2; ++h) xn[i][h] = in[row[i][h] * kSysPitch + ((u + 1) & kMask)];
+      }
+      SLA_UNROLL
+      for (int h = 0; h < 2; ++h) {
+        int32_t fo[N], bo[N];
+        for (int q = 0; q < N; ++q) {
+          const int i = reverse ? N - 1 - q : q;
+          const int k = lanes.lane(i) % G;
+          int32_t bout;
+          const int32_t f = st[i][h].step(k == G - 1 ? xq[i][h] : fin[i], bin[i], bout);
+          fo[i] = f;
+          bo[i] = k == G - 1 ? fin[i] : bout;
+          // Lane 0's output, row B's sample u - G/2 at even steps, row A's
+          // u + 1 - G/2 at odd ones. Every lane runs the de-emphasis and
+          // the store: a branch here cost more than the step
+          // (synth_probe.cu). A sample below 0 is 0, in the slot of sample
+          // n + kSysRing, which the steps write before the warp stores it.
+          int32_t v = f;
+          if (EMPH) v = st[i][h].de = wadd(f, wmul(st[i][h].de, kEmphasisCoef) >> kEmphasisShift);
+          out[lanes.lane(i) * kSysLanePitch + h * kSysRing + ((u + h - G / 2) & kMask)] = v;
+        }
+        lanes.template rotate_back<G>(fo);
+        lanes.template rotate<G>(bo);
+        for (int i = 0; i < N; ++i) {
+          fin[i] = fo[i];
+          bin[i] = bo[i];
+        }
+      }
+      for (int i = 0; i < N; ++i) {
+        xq[i][0] = xn[i][0];
+        xq[i][1] = xn[i][1];
+      }
+    }
+  }
+  lanes.sync();
+  if (nchunks >= 1) store(nchunks - 1);
 }
 
 // K2's and K4's long-term FIR residual at sample n of one row, from the

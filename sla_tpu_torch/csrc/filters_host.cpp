@@ -1,14 +1,15 @@
 // Host build of the kernels' bodies (filters.cuh), for the tests only:
 // g++ -fwrapv compiles it on a machine without a card, and the tests hold
 // each body against the plain PyTorch version. Same parameters as the C
-// entries of filters.cu, in the same layouts ((B, L) rows for K1-K4, K6 and
-// K7, the sample-major (L, B) for K5 and the LMS alone); `fixed` selects
-// the compile-time-order instantiation the kernel would take for these
-// orders (when one exists) instead of the run-time one. K1 and K7 run their
-// kernels' lane schedules through sla::HostLanes, which holds a warp's 32
-// lanes (K1: each segment's chunks and shuffles; K7: each step's lanes one
-// after another, forward or in reverse, so a lane that reads a sample
-// written in its own step gives a wrong sample in one of the two orders).
+// entries of filters.cu, in the same layouts ((B, L) rows for K1-K7, the
+// sample-major (L, B) for the LMS alone); `fixed` selects the
+// compile-time-order instantiation the kernel would take for these orders
+// (when one exists) instead of the run-time one (K5: the widest
+// configuration). K1, K5 and K7 run their kernels' lane schedules through
+// sla::HostLanes, which holds a warp's 32 lanes (K1: each segment's chunks
+// and shuffles; K5 and K7: each step's lanes one after another, forward or
+// in reverse, so a lane that reads a value written in its own step gives a
+// wrong sample in one of the two orders).
 // K2-K4 and K6 run their kernels' tile schedule (Stage2Pipe, SynthPipe,
 // EncodePipe, LmsSynthPipe) one row group at a time, each iteration's roles
 // one after another in pipeline order, so a slot that two roles share in
@@ -24,18 +25,15 @@
 
 namespace {
 
-template <class Step>
-void run_rows(int B, int L, const int32_t* x, int32_t* y, Step (*make)(int, void*), void* ctx) {
-  for (int row = 0; row < B; ++row) {
-    Step step = make(row, ctx);
-    sla::run_row(step, x + row, y + row, B, L);
+// The LMS alone on the sample-major (L, B) layout, one row after another in
+// sample order: row r's sample n at x[n * B + r].
+template <int M, bool SYNTH, bool TREE>
+void lms_rows(const int32_t* x, int32_t* y, int B, int L, int m) {
+  for (int64_t row = 0; row < B; ++row) {
+    sla::Lms<M, SYNTH, TREE> lms(m);
+    for (int64_t n = 0; n < L; ++n) y[n * B + row] = lms(x[n * B + row]);
   }
 }
-
-struct Args {
-  const int32_t* coef;
-  int p, m;
-};
 
 // The producer's part of iteration `it`, done at once: copy tile it in
 // (store() copies tile it - kStore out, after the stages).
@@ -156,15 +154,23 @@ void encode_pipe(const int32_t* x, int32_t* y, const int32_t* coef, const int32_
   }
 }
 
-template <int M, bool SYNTH, bool TREE>
-sla::LmsStep<M, SYNTH, TREE> make_lms(int, void* ctx) {
-  return sla::LmsStep<M, SYNTH, TREE>(((const Args*)ctx)->m);
-}
-
-template <int P, bool EMPH>
-sla::LatticeSynth<P, EMPH> make_lattice_synth(int row, void* ctx) {
-  const Args& a = *(const Args*)ctx;
-  return sla::LatticeSynth<P, EMPH>(a.coef + (int64_t)row * a.p, a.p);
+// K5's kernel, one warp (64 / G rows) after another; (B, L) rows. The warps
+// share one pair of rings, so a slot read before the warp wrote it holds
+// another warp's sample.
+template <class Config>
+void lattice_synth_warps(const int32_t* x, int32_t* y, const int32_t* coef, int B, int L, int p,
+                         bool emphasis, bool reverse) {
+  constexpr int G = Config::G, S = Config::S;
+  std::vector<int32_t> rings(sla::SysShape<G>::kWords);
+  for (int64_t row0 = 0; row0 < B; row0 += sla::SysShape<G>::kRows) {
+    if (emphasis) {
+      sla::lattice_synth_warp<G, S, true>(sla::HostLanes(), x, y, B, L, row0, coef, p, rings.data(),
+                                          reverse);
+    } else {
+      sla::lattice_synth_warp<G, S, false>(sla::HostLanes(), x, y, B, L, row0, coef, p,
+                                           rings.data(), reverse);
+    }
+  }
 }
 
 // K6's kernel, one row group after another; (B, L) rows
@@ -224,14 +230,13 @@ void sla_host_lattice_predict(const int32_t* x, int32_t* y, const int32_t* coef,
   lattice_segments<0, true>(x, y, coef, B, L, p, seg);
 }
 
+// K5; fixed 0 takes the widest configuration (48 stages) for every order;
+// reverse: run each step's lanes in reverse order
 void sla_host_lattice_synth(const int32_t* x, int32_t* y, const int32_t* coef, int B, int L,
-                            int p, int emphasis, int fixed) {
-  Args a{coef, p, 0};
-  if (!emphasis) return run_rows(B, L, x, y, make_lattice_synth<0, false>, &a);
-  if (fixed && p == 8) return run_rows(B, L, x, y, make_lattice_synth<8, true>, &a);
-  if (fixed && p == 16) return run_rows(B, L, x, y, make_lattice_synth<16, true>, &a);
-  if (fixed && p == 32) return run_rows(B, L, x, y, make_lattice_synth<32, true>, &a);
-  run_rows(B, L, x, y, make_lattice_synth<0, true>, &a);
+                            int p, int emphasis, int fixed, int reverse) {
+  if (fixed && sla::synth_config(p) == 32)
+    return lattice_synth_warps<sla::SynthConfig<32>>(x, y, coef, B, L, p, emphasis, reverse);
+  lattice_synth_warps<sla::SynthConfig<48>>(x, y, coef, B, L, p, emphasis, reverse);
 }
 
 void sla_host_stage2_predict(const int32_t* x, int32_t* y, const int32_t* md, const int32_t* q15,
@@ -259,17 +264,12 @@ void sla_host_synth_cascade(const int32_t* x, int32_t* y, const int32_t* coef, c
 // the kernels use (tree = 1) or the serial one (tree = 0); (L, B) rows.
 void sla_host_lms(const int32_t* x, int32_t* y, int B, int L, int m, int synth, int tree,
                   int fixed) {
-  Args a{nullptr, 0, m};
   if (fixed && m == 8) {
-    if (synth) return tree ? run_rows(B, L, x, y, make_lms<8, true, true>, &a)
-                           : run_rows(B, L, x, y, make_lms<8, true, false>, &a);
-    return tree ? run_rows(B, L, x, y, make_lms<8, false, true>, &a)
-                : run_rows(B, L, x, y, make_lms<8, false, false>, &a);
+    if (synth) return tree ? lms_rows<8, true, true>(x, y, B, L, m) : lms_rows<8, true, false>(x, y, B, L, m);
+    return tree ? lms_rows<8, false, true>(x, y, B, L, m) : lms_rows<8, false, false>(x, y, B, L, m);
   }
-  if (synth) return tree ? run_rows(B, L, x, y, make_lms<0, true, true>, &a)
-                         : run_rows(B, L, x, y, make_lms<0, true, false>, &a);
-  tree ? run_rows(B, L, x, y, make_lms<0, false, true>, &a)
-       : run_rows(B, L, x, y, make_lms<0, false, false>, &a);
+  if (synth) return tree ? lms_rows<0, true, true>(x, y, B, L, m) : lms_rows<0, true, false>(x, y, B, L, m);
+  tree ? lms_rows<0, false, true>(x, y, B, L, m) : lms_rows<0, false, false>(x, y, B, L, m);
 }
 
 // K4; reverse: run each iteration's roles in reverse pipeline order

@@ -129,6 +129,7 @@ def resolve_device(device) -> torch.device:
 
 class Encoder:
     def __init__(self, config: EncoderConfig | None = None, device=None):
+        pipeline.refuse_unported_env()
         self.config = config or EncoderConfig()
         self.device = resolve_device(device)
         self._wave_format: WaveFormat | None = None

@@ -149,15 +149,15 @@ def host_library() -> ctypes.CDLL:
     def bind(lib):
         vp, i = ctypes.c_void_p, ctypes.c_int
         # the CUDA entries' arguments with `fixed` in place of the stream, and
-        # K1's segment length, K4's and K6's role order and K7's lane order
-        # after it
+        # K1's segment length, K4's and K6's role order and K5's and K7's
+        # lane order after it
         sigs = {
             "sla_host_lattice_predict": [vp, vp, vp, i, i, i, i, i, i],
             "sla_host_stage2_predict": [vp, vp, vp, vp, i, i, i, i, i],
             "sla_host_synth_cascade": [vp, vp, vp, vp, vp, i, i, i, i, i, i],
             "sla_host_lms": [vp, vp, i, i, i, i, i, i],
             "sla_host_fused_encode": [vp, vp, vp, vp, vp, i, i, i, i, i, i, i],
-            "sla_host_lattice_synth": [vp, vp, vp, i, i, i, i, i],
+            "sla_host_lattice_synth": [vp, vp, vp, i, i, i, i, i, i],
             "sla_host_lms_synth": [vp, vp, i, i, i, i, i],
             "sla_host_longterm_synth": [vp, vp, vp, vp, i, i, i, i, i],
         }

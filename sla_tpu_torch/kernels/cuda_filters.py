@@ -18,9 +18,8 @@ fused_stage2_wide_tl, fused_synth_tl / fused_synth_wide_tl, fused_encode_tl
 its synthesize direction) and longterm_synth_tl.
 
 Every wrapper takes (B, L) int32 rows, each filtered from zero state (the
-format resets the filters at block start), and returns (B, L) int32. K1-K4,
-K6 and K7 read and write the rows as they are; K5 runs on the sample-major
-(L, B) layout, between two transposes. The long-term
+format resets the filters at block start), and returns (B, L) int32; every
+kernel reads and writes the rows as they are. The long-term
 parameters are in the kernels' layout: md (B,) int32 = pitch + T//2 (at
 most 258), 0 for a row without the stage, and q15 (B, T) int32 = Q31
 coefficient >> 16 (sla_tpu_torch/params.py makes them).
@@ -148,21 +147,6 @@ def _check(data: torch.Tensor, coef=None, md=None, q15=None, lms_order: int = 0)
         raise ValueError(f"no kernel for device {data.device}")
 
 
-def _launch(name: str, fn, data: torch.Tensor, *args) -> torch.Tensor:
-    """Transposes rows to K5's (L, B) layout, launches `fn` on the current
-    stream and transposes the result back."""
-    with torch.cuda.device(data.device):
-        x_t = data.t().contiguous()
-        y_t = torch.empty_like(x_t)
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-        err = getattr(cuda_library(), fn)(x_t.data_ptr(), y_t.data_ptr(), *ptrs, stream)
-        if err != 0:
-            raise RuntimeError(f"{fn} launch failed: cudaError {err}")
-        launches[name] += 1
-        return y_t.t().contiguous()
-
-
 def _launch_rows(name: str, fn, data: torch.Tensor, *args) -> torch.Tensor:
     """Launches `fn` on the (B, L) rows as they are, on the current stream."""
     with torch.cuda.device(data.device):
@@ -251,8 +235,8 @@ def lattice_synth(
     if data.device.type == "cpu":
         return lattice_synth_plain(data, coef, emphasis)
     B, L = data.shape
-    return _launch("lattice_synth", "sla_lattice_synth", data,
-                   coef.contiguous(), B, L, coef.shape[1], int(emphasis))
+    return _launch_rows("lattice_synth", "sla_lattice_synth", data,
+                        coef.contiguous(), B, L, coef.shape[1], int(emphasis))
 
 
 def lms_synth(data: torch.Tensor, lms_order: int) -> torch.Tensor:

@@ -141,6 +141,25 @@ def device_entropy_on(config, backend: str) -> bool:
     return False
 
 
+# sla_tpu's debug and sanitizer switches: the ASan + UBSan and -DSLA_TPU_DEBUG
+# builds of the native library (sla_tpu/native/__init__.py) and the checkify
+# asserts (sla_tpu/debug.py)
+UNPORTED_ENV = ("SLA_TPU_SANITIZE", "SLA_TPU_NATIVE_DEBUG", "SLA_TPU_DEBUG_ASSERTS")
+
+
+def refuse_unported_env() -> None:
+    """Raises if one of sla_tpu's debug or sanitizer variables is set: the
+    port has none of those builds or checks yet, and a user who asked for
+    them would otherwise get the production path and no word. Read when an
+    Encoder or Decoder is made, not at import."""
+    for name in UNPORTED_ENV:
+        if os.environ.get(name, "").strip():
+            raise NotImplementedError(
+                f"{name}: this debug or sanitizer variant is not ported to "
+                "sla_tpu_torch yet; unset it"
+            )
+
+
 def to_rows(batch: np.ndarray, device: torch.device) -> torch.Tensor:
     """Upload a (B, L) int32 numpy batch."""
     return torch.from_numpy(np.ascontiguousarray(batch, dtype=np.int32)).to(device)

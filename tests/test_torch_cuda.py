@@ -1,6 +1,7 @@
 """The seven CUDA kernels on the card against their plain PyTorch versions
-on the same card (K1-K4, K6 and K7 also on ragged and misaligned rows), the fused
-encode against the two-stage form, and the encode/decode slice on the card
+on the same card (each also on ragged and misaligned rows), the fused
+encode against the two-stage form, K5 against K1 (a round trip), and the
+encode/decode slice on the card
 against the host backend. Needs an NVIDIA GPU with nvcc (the kernels build
 at first use); elsewhere every test skips. Run them on a machine with a
 card:
@@ -187,3 +188,42 @@ def test_slice_on_card_matches_host(dev):
     assert blobs[0] == blobs[1]
     dec = st.Decoder(st.DecoderConfig(backend="device"), device="cuda")
     assert np.array_equal(dec.decode_whole(blobs[1])[1], pcm)
+
+
+SYNTH_SHAPES = [(1, 1), (3, 2), (33, 63), (2049, 1), (1, 12289), (33, 12289)]
+
+
+@pytest.mark.parametrize("B,L", SYNTH_SHAPES)
+@pytest.mark.parametrize("p", [0, 1, 8, 16, 32, 48])
+def test_lattice_synth_lanes_on_card(dev, B, L, p):
+    """K5 (lanes over stages, 64 / G rows a warp) where rows do not fill a
+    warp and chunks do not divide evenly, with and without de-emphasis, on
+    rows as allocated and misaligned."""
+    x, coef, _, _ = _inputs(dev, B * 17 + L + p, B, L, p, 0)
+    for emphasis in (True, False):
+        plain = cuda_filters.lattice_synth_plain(x, coef, emphasis)
+        for rows in (x, _misaligned(x)):
+            out = cuda_filters.lattice_synth(rows, coef, emphasis)
+            torch.cuda.synchronize()
+            assert torch.equal(out, plain)
+
+
+@pytest.mark.parametrize("p", [16, 48])
+def test_lattice_synth_full_shape_on_card(dev, p):
+    """K5 at 2,049 x 12,289: one row past a whole number of warps, one
+    sample past a whole number of chunks."""
+    x, coef, _, _ = _inputs(dev, p + 5, 2049, 12289, p, 0)
+    out = cuda_filters.lattice_synth(x, coef)
+    torch.cuda.synchronize()
+    assert torch.equal(out, cuda_filters.lattice_synth_plain(x, coef))
+
+
+@pytest.mark.parametrize("p", [8, 16, 32, 48, 5])
+def test_lattice_synth_inverts_predict_on_card(dev, p):
+    """K5 inverts K1 on the card, with and without emphasis."""
+    x, coef, _, _ = _inputs(dev, p + 11, 300, 1500, p, 0)
+    for emphasis in (True, False):
+        r = cuda_filters.lattice_predict(x, coef, emphasis)
+        out = cuda_filters.lattice_synth(r, coef, emphasis)
+        torch.cuda.synchronize()
+        assert torch.equal(out, x)

@@ -27,12 +27,13 @@ def lib():
 
 
 ROW_ENTRIES = ("sla_host_lattice_predict", "sla_host_stage2_predict", "sla_host_synth_cascade",
-               "sla_host_fused_encode", "sla_host_lms_synth", "sla_host_longterm_synth")
+               "sla_host_fused_encode", "sla_host_lattice_synth", "sla_host_lms_synth",
+               "sla_host_longterm_synth")
 
 
 def _call(lib, fn, x, *args):
-    """Runs a host entry on (B, L) rows: K1-K4, K6 and K7 take them as they
-    are, the others in the (L, B) layout."""
+    """Runs a host entry on (B, L) rows: K1-K7 take them as they are, the
+    LMS alone in the (L, B) layout."""
     rows = fn in ROW_ENTRIES
     x_in = np.ascontiguousarray(x if rows else x.T)
     y = np.empty_like(x_in)
@@ -96,7 +97,7 @@ def test_known_parameter_bodies_match_plain(lib, p, T, M, fixed, full_range):
     assert np.array_equal(k4, cuda_filters.fused_encode_plain(X, C, MD, Q, M).numpy())
 
     for emphasis in (1, 0):
-        k5 = _call(lib, "sla_host_lattice_synth", x, coef, B, L, p, emphasis, fixed)
+        k5 = _call(lib, "sla_host_lattice_synth", x, coef, B, L, p, emphasis, fixed, 0)
         assert np.array_equal(k5, cuda_filters.lattice_synth_plain(X, C, bool(emphasis)).numpy())
     k1 = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, 0, fixed, 0)
     assert np.array_equal(k1, cuda_filters.lattice_predict_plain(X, C, False).numpy())
@@ -120,7 +121,7 @@ def test_split_bodies_round_trip(lib):
     no_md, no_q = np.zeros(B, np.int32), np.zeros((B, 0), np.int32)
     for emphasis in (1, 0):
         r = _call(lib, "sla_host_lattice_predict", x, coef, B, L, p, emphasis, 1, 0)
-        assert np.array_equal(_call(lib, "sla_host_lattice_synth", r, coef, B, L, p, emphasis, 1), x)
+        assert np.array_equal(_call(lib, "sla_host_lattice_synth", r, coef, B, L, p, emphasis, 1, 0), x)
     r = _call(lib, "sla_host_stage2_predict", x, no_md, no_q, B, L, 0, M, 1)
     assert np.array_equal(_call(lib, "sla_host_lms_synth", r, B, L, M, 1, 0), x)
     r = _call(lib, "sla_host_stage2_predict", x, md, q15, B, L, T, 0, 1)
@@ -300,3 +301,36 @@ def test_longterm_lanes_match_plain(lib, B, L, T, fixed, reverse):
     x, md, q15, plain = _longterm_case(B, L, T)
     k7 = _call(lib, "sla_host_longterm_synth", x, md, q15, B, L, T, fixed, reverse)
     assert np.array_equal(k7, plain)
+
+
+# -- K5 as a systolic schedule (filters.cuh lattice_synth_warp: lanes over
+# stages, two rows on opposite step parities, 64 / G rows a warp) ------------
+
+SYNTH_ORDERS = [0, 1, 5, 8, 16, 32, 48]
+# B not a multiple of a warp's rows (4 at G 16), L of one, two and odd
+# lengths, past a chunk (32) and a ring (64)
+SYNTH_SHAPES = [(37, 1), (5, 2), (19, 33), (3, 65), (21, 131)]
+
+
+@functools.lru_cache(maxsize=None)
+def _lattice_synth_case(B, L, p, emphasis):
+    x, coef, _, _ = _inputs(B * 13 + L + p + emphasis, B, L, p, 0, True)
+    plain = cuda_filters.lattice_synth_plain(torch.from_numpy(x), torch.from_numpy(coef),
+                                             bool(emphasis))
+    return x, coef, plain.numpy()
+
+
+@pytest.mark.parametrize("reverse", [0, 1])
+@pytest.mark.parametrize("fixed", [1, 0])
+@pytest.mark.parametrize("emphasis", [1, 0])
+@pytest.mark.parametrize("p", SYNTH_ORDERS)
+def test_lattice_synth_lanes_match_plain(lib, p, emphasis, fixed, reverse):
+    """K5's lane schedule, each step's lanes forward, then in reverse, on
+    full-range rows with INT32_MIN samples; fixed 1 runs the kernel's
+    configuration for p (32 stages up to p 32), fixed 0 the widest (48),
+    the stages above p at coefficient 0 in both. The warps
+    share one pair of rings, so a slot read before it was written fails."""
+    for B, L in SYNTH_SHAPES:
+        x, coef, plain = _lattice_synth_case(B, L, p, emphasis)
+        k5 = _call(lib, "sla_host_lattice_synth", x, coef, B, L, p, emphasis, fixed, reverse)
+        assert np.array_equal(k5, plain), (B, L)

@@ -120,6 +120,22 @@ def test_device_entropy_knob_raises(monkeypatch, value):
         st.Decoder(st.DecoderConfig(backend="device"), device="cpu").decode_whole(blob)
 
 
+@pytest.mark.parametrize("name", ["SLA_TPU_SANITIZE", "SLA_TPU_NATIVE_DEBUG",
+                                  "SLA_TPU_DEBUG_ASSERTS"])
+def test_debug_and_sanitizer_variables_raise(monkeypatch, name):
+    """sla_tpu's debug and sanitizer variants are not ported: setting one
+    makes the port's Encoder and Decoder refuse to start, read when they
+    are made."""
+    monkeypatch.setitem(os.environ, name, "1")
+    with pytest.raises(NotImplementedError, match=name):
+        st.Encoder(st.EncoderConfig(backend="device"), device="cpu")
+    with pytest.raises(NotImplementedError, match=name):
+        st.Decoder(st.DecoderConfig(backend="device"), device="cpu")
+    monkeypatch.delitem(os.environ, name)
+    st.Encoder(device="cpu")
+    st.Decoder(device="cpu")
+
+
 def test_encode_whole_batch_not_ported_raises():
     from sla_tpu_torch.encoder import encode_whole_batch
 
