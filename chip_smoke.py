@@ -1,15 +1,16 @@
 """Smoke run of sla_tpu_torch on one NVIDIA GPU: the port's encode/decode
-path and its known-parameter path at a real size, through the seven
-hand-written CUDA kernels.
+path and its known-parameter path at a real size, through the nine
+hand-written CUDA kernels (K1-K7, the filters; K8 and K9, the entropy
+coder).
 
     python3 chip_smoke.py
 
 Phases, one line each; any failure raises and the script exits non-zero:
 
-1. environment: the card, its clocks, torch and CUDA versions, and three
-   builds started together: the kernels' nvcc build (from csrc/ in this
-   checkout), the port's native host library (sla_tpu_torch/native, g++)
-   and, where build/parent/sla_tpu_torch/ holds the previous commit's
+1. environment: the card, its clocks, torch and CUDA versions, and the
+   builds started together: the kernels' nvcc build (csrc/filters.cu and
+   csrc/entropy.cu from this checkout, one nvcc command), the port's
+   native host library (sla_tpu_torch/native, g++) and, where build/parent/sla_tpu_torch/ holds the previous commit's
    package (git archive <commit> sla_tpu_torch | tar -x -C build/parent),
    its kernels, through its own build.py, for the before/after times of
    phase 2;
@@ -23,15 +24,28 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ptxas resources and the shared memory of K2-K4, K6 and K7, and K1-K7's
    times beside the previous commit's kernels on the same inputs
    (previous, new, new, previous), each called through its own commit's
-   wrappers, when that package was unpacked;
+   wrappers, when that package was unpacked; then K8 and K9 against their
+   plain versions at the same 2,048 rows x 12,288 (1,024 stereo blocks,
+   residual scales spread over 2^12, INT32 extremes for gamma escapes; K9
+   on the host coder's payloads at every bit alignment), exact, timed, each
+   bound from the symbols' paths through the bodies, then timed at 1 block
+   (one lane of a warp) and 32 (one warp) with the SM clock under load,
+   beside the previous commit's K8 and K9 when it has them;
 3. slice: five minutes of seeded CD stereo (44.1 kHz, 16 bit) at preset 2
-   through Encoder/Decoder(backend='device', device='cuda') — the stream
-   must equal backend='host' byte for byte and decode to the exact PCM —
-   with K1-K3's launch counts above 0; then one minute of 96 kHz / 24-bit
-   stereo at preset 4, checked the same way;
+   through Encoder/Decoder(backend='device', device='cuda'), entropy on the
+   card by default (K8, K9) — the stream must equal backend='host' byte for
+   byte and decode to the exact PCM — with K1-K3's, K8's and K9's launch
+   counts above 0; the same with device_entropy='off' (before/after in one
+   call); the number of static-Golomb blocks (host coder); the entropy
+   stage split into kernel, copies and framing; one torch.profiler trace of
+   one encode and one decode (top five device operations, the device's
+   idle share); then one minute of 96 kHz / 24-bit stereo at preset 4,
+   checked the same way;
 4. known parameters: the bench twin's cells (checked, then timed) at 256
-   and 2,048 rows, the verify twin's checks, and entry()'s forward step
-   against the plain encode chain, with all seven launch counts above 0.
+   and 2,048 rows, the verify twin's checks (the entropy kernels and the
+   codec with on-card entropy on and off among them), and entry()'s forward
+   step against the plain encode chain, with all seven filter launch counts
+   above 0.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and the result. Imports neither jax nor
@@ -59,7 +73,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from sla_tpu_torch.tools.bench_device import card_line, cuda_ms  # noqa: E402
 
 PALLAS = "sla_tpu/kernels/pallas_filters.py"
-KERNELS = {  # wrapper name -> (Pallas function it replaces, file:line)
+RICE = "sla_tpu/rice_device.py"
+KERNELS = {  # wrapper name -> (the TPU function it replaces, file:line)
     "lattice_predict": f"{PALLAS}:1700",  # lattice_filter_tl(synthesize=False)
     "stage2_predict": f"{PALLAS}:839",  # fused_stage2_tl
     "synth_cascade": f"{PALLAS}:1574",  # fused_synth_tl
@@ -67,9 +82,15 @@ KERNELS = {  # wrapper name -> (Pallas function it replaces, file:line)
     "lattice_synth": f"{PALLAS}:1700",  # lattice_filter_tl(synthesize=True)
     "lms_synth": f"{PALLAS}:1735",  # lms_filter_tl(synthesize=True)
     "longterm_synth": f"{PALLAS}:412",  # longterm_synth_tl
+    # rice_encode_parts and rice_decode_blocks: lax.scans under XLA, not
+    # Pallas kernels (K8 also does the host pack, native sla_pack_parts)
+    "rice_encode_blocks": f"{RICE}:77",
+    "rice_decode_blocks": f"{RICE}:145",
 }
 SLICE_KERNELS = ("lattice_predict", "stage2_predict", "synth_cascade")  # phase 3's path
-SOURCE = "sla_tpu_torch/csrc/filters.cu"
+ENTROPY_KERNELS = ("rice_encode_blocks", "rice_decode_blocks")  # phase 3's too
+SOURCES = {name: ("sla_tpu_torch/csrc/entropy.cu" if name in ENTROPY_KERNELS
+                  else "sla_tpu_torch/csrc/filters.cu") for name in KERNELS}
 ROOT = pathlib.Path(__file__).resolve().parent
 # the previous commit's sla_tpu_torch/, unpacked there (gitignored) for the
 # before/after times (git archive <commit> sla_tpu_torch | tar -x -C
@@ -136,7 +157,7 @@ def phase_environment() -> dict:
     clock, clock_max = clocks()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:  # one compiler per source, all at once
+    with ThreadPoolExecutor(2) as pool:  # the three builds at once
         parent = pool.submit(parent_library)
         nat = pool.submit(native.available)
         build.cuda_library()
@@ -235,7 +256,7 @@ def pipe_resources(lib) -> None:
     from sla_tpu_torch.kernels import build
 
     names = ("lattice_predict|stage2_predict|synth_cascade|fused_encode|lattice_synth|"
-             "lms_synth|longterm_synth")
+             "lms_synth|longterm_synth|rice_encode_blocks|rice_decode_blocks")
     current = None
     for ln in build.build_log().splitlines():
         m = re.search(rf"Compiling entry function '\S*?({names})_kernelI(\w*?)EEv", ln)
@@ -384,6 +405,203 @@ def phase_kernels(env: dict) -> dict:
     return results
 
 
+# int32 operations of one symbol on each path it can take, counted from the
+# bodies in csrc/entropy.cuh (a 64-bit add, or, shift or widening multiply
+# counts 2; loads, stores and loop control are not counted), and of one
+# 32-bit word of payload written (K8) or read (K9). K8 is one encode, its
+# emit pass: the count pass is this design's cost, not the function's.
+#   K8, every symbol 23: zigzag 3; stage 0's rice_bits 8 (shr, add, shr,
+#     max, sub, clz, sub, and); k0 1; param_update 10 (shl, mul, widening
+#     mul 2, two 64-bit adds 4, 64-bit shr 2); the u < k0 test 1.
+#     Stage 0: + two puts 14 (a put: 64-bit shl and or 4, the bit count's
+#     add and test 2; the remainder's mask 2 more) = 37. Stage 1: + its
+#     rice_bits 8, u - k0 1, param_update 10, q and the remainder's mask 4,
+#     the q test 1 (47), the unary put 7 and the remainder's 6 = 60. Escape:
+#     47 + gamma and ndigit 3 + four puts 25 = 75. A word written: 6 (the
+#     count's sub, 64-bit shr 2, bswap, the 64-bit index 2).
+#   K9, stage 0: rice_bits 8, refill test 1, clz64 2, the quot test 1, skip
+#     and cursor 6, kb 1, refill test 1, top 3, skip and cursor 5, the limit
+#     test 2, k0 1, param_update 10, unzigzag 4 = 45. Stage 1: + its
+#     rice_bits 8, the escape test 1, the value 4, val - k0 and param_update
+#     11, two selects 2 = 71. Escape: + refill test, clz64 and the gz test 4,
+#     skip 4, refill test and top 4, the quotient 8, skip 3, cursor 3 = 97.
+#     A word read: 8 (64-bit shl and or 4, the bit count 2, the index 2).
+ENTROPY_OPS = {
+    "rice_encode_blocks": {"stage0": 37, "stage1": 60, "escape": 75, "word": 6},
+    "rice_decode_blocks": {"stage0": 45, "stage1": 71, "escape": 97, "word": 8},
+}
+
+
+def symbol_paths(rows: torch.Tensor, counts: torch.Tensor, inits: torch.Tensor, C: int):
+    """(stage 0 only, stage 1, escape) symbol counts of the blocks whose
+    channels are consecutive rows of `rows`, from the plain parts scan: a
+    unary part of one bit is stage 0, a gamma part an escape."""
+    from sla_tpu_torch import rice_device
+
+    lengths = rice_device.encode_parts64(rows, inits.reshape(-1))[1]
+    idx = torch.arange(rows.shape[1], device=rows.device)[:, None]
+    valid = idx < counts.repeat_interleave(C)[None, :]
+    n = int(valid.sum())
+    n0 = int((valid & (lengths[..., 0] == 1)).sum())
+    ne = int((valid & (lengths[..., 2] > 0)).sum())
+    return n0, n - n0 - ne, ne
+
+
+def entropy_bound(name: str, paths, words: int, moved_bytes: int, int32_per_s: float):
+    """(bound ms, 'bytes' or 'operations', operations): `paths` the symbols
+    on stage 0, stage 1 and the escape, `words` the payload's 32-bit words,
+    `moved_bytes` each residual (4 B a symbol) and payload byte once."""
+    c = ENTROPY_OPS[name]
+    ops = sum(n * c[k] for k, n in zip(("stage0", "stage1", "escape"), paths)) + c["word"] * words
+    t_ops = ops / int32_per_s * 1e3
+    t_bytes = moved_bytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations", ops) if t_ops >= t_bytes else (t_bytes, "bytes", ops)
+
+
+def sm_clock_under(launch, n: int) -> float:
+    """The SM clock (MHz) nvidia-smi reads while `n` queued calls of
+    `launch` (which must not sync) run."""
+    torch.cuda.synchronize()
+    for _ in range(n):
+        launch()
+    clock = clocks()[0]
+    torch.cuda.synchronize()
+    return clock
+
+
+def parent_entropy(parent):
+    """The previous commit's kernels.cuda_entropy beside its cuda_filters
+    (`parent`), or None when that commit has no entropy kernels."""
+    if parent is None or not (PARENT / "sla_tpu_torch" / "kernels" / "cuda_entropy.py").exists():
+        return None
+    return importlib.import_module(f"{parent.__package__}.cuda_entropy")
+
+
+def previous_vs_new(name: str, prev, new, same, reps: int = 3) -> None:
+    """The previous and the new kernel on the same inputs: the same result,
+    then times in the order previous, new, new, previous."""
+    if not same(prev(), new()):
+        raise AssertionError(f"{name}: the previous and the new kernel differ")
+    t = [cuda_ms(f, reps, warmup=1) for f in (prev, new, new, prev)]
+    log("kernels", f"{name} previous / new / new / previous: "
+        + " / ".join(f"{v:.3f}" for v in t) + f" ms (x{(t[0] + t[3]) / (t[1] + t[2]):.2f})")
+
+
+def phase_entropy(env: dict) -> dict:
+    """K8 and K9 against their plain versions at the main path's shape,
+    exact, and timed."""
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.kernels import cuda_entropy as ce
+    from sla_tpu_torch.tools import verify_device as vd
+
+    B, C, L = 1024, 2, 12288  # 2,048 rows x 12,288
+    t0 = time.perf_counter()
+    rows, counts, inits = vd.entropy_blocks(2026, B, C, L, 3000.0, spread=6.0)
+    stream, offs, bits = vd.entropy_stream(2027, rows, counts, inits, C)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rows).to(dev)
+    row0 = torch.arange(0, B * C, C, dtype=torch.int32, device=dev)
+    cnt = torch.from_numpy(counts).to(dev)
+    ini = torch.from_numpy(inits.astype(np.int64)).to(dev)
+    symbols = int(counts.sum()) * C
+    log("kernels", f"entropy inputs: {B} stereo blocks x {L} ({symbols} symbols; block scales "
+        f"3000 x 2^[-6, 6], INT32 extremes), the host coder's {len(stream)}-byte stream at "
+        f"every bit alignment, made in {time.perf_counter() - t0:.1f} s")
+    results = {}
+
+    k8 = lambda: ce.rice_encode_blocks(x, row0, cnt, ini, C)  # noqa: E731
+    got = k8()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ce.rice_encode_blocks_plain(x, row0, cnt, ini, C)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("rice_encode_blocks: K8 differs from its plain version")
+    payload_bytes = int(got[2].sum())
+    paths = symbol_paths(x, cnt, ini, C)
+    if sum(paths) != symbols:
+        raise AssertionError(f"entropy paths {paths} do not add up to {symbols} symbols")
+    log("kernels", f"entropy symbol paths: stage 0 {paths[0]}, stage 1 {paths[1]}, gamma escape "
+        f"{paths[2]}")
+    ms = cuda_ms(k8, 5, warmup=1)
+    bound_ms, bound_by, ops = entropy_bound("rice_encode_blocks", paths, payload_bytes // 4,
+                                            4 * symbols + payload_bytes, env["int32_per_s"])
+    results["rice_encode_blocks"] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": bound_ms, "bound_by": bound_by,
+                                     "library_ms": None}
+    log("kernels", f"rice_encode_blocks B {B} C {C} L {L}: exact ({payload_bytes} payload bytes), "
+        f"kernel {ms:.3f} ms (count + emit + the sizes' copy), plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}; {ops / 1e9:.2f} G ops, {ops / symbols:.1f} a symbol, "
+        f"one pass; {(4 * symbols + payload_bytes) / 1e6:.1f} MB; "
+        f"{100 * bound_ms / ms:.1f} % of it reached)")
+
+    words = rice_device.upload_stream(stream, dev)
+    W = rice_device.window_width(offs, bits)
+    o = torch.from_numpy(offs).to(dev)
+    k9 = lambda: ce.rice_decode_blocks(words, o, W, cnt, ini, C, L)  # noqa: E731
+    k_rows, k_bad = k9()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_rows, p_bad = ce.rice_decode_blocks_plain(words, o, W, cnt, ini, C, L)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    ok, err = ce.decode_agrees(k_rows, k_bad, p_rows, p_bad, C)
+    if not ok or bool(k_bad.any()) or not torch.equal(k_rows, x):
+        raise AssertionError(f"rice_decode_blocks: K9 differs from its plain version or the host "
+                             f"coder (max |err| {err}, {int(k_bad.sum())} blocks flagged)")
+    ms = cuda_ms(k9, 5, warmup=1)
+    bound_ms, bound_by, ops = entropy_bound("rice_decode_blocks", paths, len(stream) // 4,
+                                            4 * symbols + len(stream), env["int32_per_s"])
+    results["rice_decode_blocks"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                     "bound_ms": bound_ms, "bound_by": bound_by,
+                                     "library_ms": None}
+    log("kernels", f"rice_decode_blocks B {B} C {C} L {L}: exact, no block flagged, rows equal "
+        f"the host coder's input, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.3f} ms ({bound_by}; {ops / 1e9:.2f} G ops, {ops / symbols:.1f} a symbol; "
+        f"{(4 * symbols + len(stream)) / 1e6:.1f} MB; {100 * bound_ms / ms:.1f} % of it reached)")
+    entropy_lanes(env, ce, x, row0, cnt, ini, C, L, words, o, W)
+    prev = parent_entropy(env["parent"])
+    if prev is not None:
+        previous_vs_new("rice_encode_blocks",
+                        lambda: prev.rice_encode_blocks(x, row0, cnt, ini, C), k8,
+                        lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b)))
+        previous_vs_new("rice_decode_blocks",
+                        lambda: prev.rice_decode_blocks(words, o, W, cnt, ini, C, L), k9,
+                        lambda a, b: ce.decode_agrees(*a, *b, C)[0])
+    return results
+
+
+
+def entropy_lanes(env, ce, x, row0, cnt, ini, C: int, L: int, words, o, W: int) -> None:
+    """Where K8's and K9's time goes: each at 1 block (one lane of a warp),
+    32 (one whole warp) and all blocks, K8's count pass alone (raw ctypes,
+    emit 0), the SM clock nvidia-smi reads while count passes run, and the
+    cycles a symbol of the slowest lane at that clock."""
+    lib = ce.cuda_library()
+    B = cnt.shape[0]
+    sizes = torch.empty((B,), dtype=torch.int64, device=x.device)
+
+    def count_pass():
+        lib.sla_rice_encode_blocks(
+            x.data_ptr(), L, row0.data_ptr(), cnt.data_ptr(), ini.data_ptr(), B, C, None, None,
+            sizes.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
+
+    count_ms = cuda_ms(count_pass, 5, warmup=1)
+    mhz = sm_clock_under(count_pass, max(1, int(1500 / max(count_ms, 0.1))))
+    cells = []
+    for name, run in (
+        ("rice_encode_blocks", lambda k: ce.rice_encode_blocks(x, row0[:k], cnt[:k], ini[:k], C)),
+        ("rice_decode_blocks", lambda k: ce.rice_decode_blocks(words, o[:k], W, cnt[:k], ini[:k],
+                                                               C, L)),
+    ):
+        for k in (1, 32, B):
+            ms = cuda_ms(lambda: run(k), 5, warmup=1)
+            per = ms * 1e-3 * mhz * 1e6 / (int(cnt[:k].max()) * C)
+            cells.append(f"{name} {k} blocks {ms:.3f} ms ({per:.0f} cycles a symbol)")
+    log("kernels", f"entropy lanes at clocks.sm {mhz:.0f} MHz under K8's count pass ({count_ms:.3f} "
+        f"ms at {B} blocks): " + "; ".join(cells))
+
 # -- phase 3 -----------------------------------------------------------------
 
 
@@ -409,30 +627,106 @@ def music(seconds: float, rate: int, bits: int, seed: int, f_lo: float, f_hi: fl
     return out
 
 
-def round_trip(st, label: str, pcm, bits: int, rate: int, preset: int, count: bool) -> dict:
+class Spans:
+    """Host-clock time spent in functions of the port's modules, each call
+    ended by a device sync; installed for one instrumented run only (the
+    syncs cost time of their own)."""
+
+    def __init__(self, targets):
+        self.ms: dict[str, float] = {label: 0.0 for _, _, label in targets}
+        self._saved = []
+        for mod, name, label in targets:
+            fn = getattr(mod, name)
+            self._saved.append((mod, name, fn))
+            setattr(mod, name, self._timed(fn, label))
+
+    def _timed(self, fn, label):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms[label] += (time.perf_counter() - t0) * 1e3
+            return out
+        return timed
+
+    def close(self) -> None:
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def device_profile(fn) -> tuple[list[tuple[str, float]], float, float]:
+    """One torch.profiler trace of fn(): (the five device operations that
+    take the most device time, with their ms; the device's busy ms; the
+    window's wall ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    # the device's own records (kernels, copies, memsets): the CPU ops that
+    # launched them carry the same time again, and CUPTI's buffer requests
+    # are the profiler's
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
+              and not e.key.startswith("Activity Buffer")]
+    top = sorted(events, key=dev_us, reverse=True)[:5]
+    return ([(e.key, dev_us(e) / 1e3) for e in top], sum(dev_us(e) for e in events) / 1e3,
+            wall_ms)
+
+
+def golomb_blocks(st, blob: bytes) -> tuple[int, int]:
+    """(static-Golomb, recursive-Rice) COMPRESSDATA blocks of a stream."""
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.constants import BlockDataType
+
+    dec = st.Decoder(st.DecoderConfig(backend="host"), device="cpu")
+    header = dec._open_stream(blob)
+    comp = [b for b in dec.scan_blocks(blob, header.num_samples)
+            if b.block_type == BlockDataType.COMPRESSDATA]
+    golomb = sum(rice_device.is_golomb_block(b.init_rice) for b in comp)
+    return golomb, len(comp) - golomb
+
+
+def round_trip(st, label: str, pcm, bits: int, rate: int, preset: int, detail: bool) -> dict:
+    """Encode and decode on the device backend, entropy on the card (the
+    default), then with device_entropy='off', each against the host
+    backend. `detail` (the main path's clip): count the launches, split the
+    entropy stage, and take the trace."""
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.kernels import cuda_entropy as ce
     from sla_tpu_torch.kernels import cuda_filters as cf
 
     ep = st.preset_parameter(preset, 2)
 
-    def encoder(backend, device):
-        enc = st.Encoder(st.EncoderConfig(backend=backend), device=device)
+    def encoder(backend, device, **kw):
+        enc = st.Encoder(st.EncoderConfig(backend=backend, **kw), device=device)
         enc.set_wave_format(st.WaveFormat(2, bits, rate))
         enc.set_encode_parameter(ep)
         return enc
 
-    if count:
+    def run(**kw):
+        enc = encoder("device", "cuda", **kw)
+        t0 = time.perf_counter()
+        blob = enc.encode_whole(pcm)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        dec = st.Decoder(st.DecoderConfig(backend="device", **kw), device="cuda")
+        t0 = time.perf_counter()
+        _, out = dec.decode_whole(blob)
+        torch.cuda.synchronize()
+        return enc, blob, enc_s, dec, out, time.perf_counter() - t0
+
+    if detail:
         cf.reset_launch_counts()
-    enc = encoder("device", "cuda")
-    t0 = time.perf_counter()
-    blob = enc.encode_whole(pcm)
-    torch.cuda.synchronize()
-    enc_s = time.perf_counter() - t0
-    dec = st.Decoder(st.DecoderConfig(backend="device"), device="cuda")
-    t0 = time.perf_counter()
-    _, out = dec.decode_whole(blob)
-    torch.cuda.synchronize()
-    dec_s = time.perf_counter() - t0
-    launches = dict(cf.launches)
+        ce.reset_launch_counts()
+    enc, blob, enc_s, dec, out, dec_s = run()
+    launches = {**cf.launches, **ce.launches}
     host = encoder("host", "cpu")
     t0 = time.perf_counter()
     host_blob = host.encode_whole(pcm)
@@ -441,18 +735,59 @@ def round_trip(st, label: str, pcm, bits: int, rate: int, preset: int, count: bo
         raise AssertionError(f"{label}: device stream differs from the host backend's")
     if out.shape != pcm.shape or not np.array_equal(out, pcm):
         raise AssertionError(f"{label}: decoded PCM differs from the input")
-    if count and not all(launches[k] > 0 for k in SLICE_KERNELS):
+    if not enc._device_entropy_active:
+        raise AssertionError(f"{label}: the device backend did not code entropy on the card")
+    if detail and not all(launches[k] > 0 for k in SLICE_KERNELS + ENTROPY_KERNELS):
         raise AssertionError(f"{label}: a kernel of the path never launched: {launches}")
+    enc_off, blob_off, enc_off_s, dec_off, out_off, dec_off_s = run(device_entropy="off")
+    if blob_off != host_blob or enc_off._device_entropy_active:
+        raise AssertionError(f"{label}: device_entropy='off' stream differs from the host's")
+    if not np.array_equal(out_off, pcm):
+        raise AssertionError(f"{label}: device_entropy='off' decode differs from the input")
     raw = pcm.shape[0] * pcm.shape[1] * bits // 8
-    log("slice", f"{label} preset {preset}: byte-identical to host, PCM exact; encode "
-        f"{enc_s:.3f} s (host backend {host_s:.3f} s), decode {dec_s:.3f} s, ratio "
-        f"{raw / len(blob):.4f}, launches {launches}")
+    golomb, rice_blocks = golomb_blocks(st, blob)
+    log("slice", f"{label} preset {preset}: byte-identical to host, PCM exact, entropy on the "
+        f"card (default) and off; encode {enc_s:.3f} s (entropy off {enc_off_s:.3f} s, host "
+        f"backend {host_s:.3f} s), decode {dec_s:.3f} s (entropy off {dec_off_s:.3f} s), ratio "
+        f"{raw / len(blob):.4f}, {rice_blocks} recursive-Rice blocks on the card, {golomb} "
+        f"static-Golomb blocks on the host coder, launches {launches}")
 
     def stages(times):
         return ", ".join(f"{k} {v * 1e3:.1f}" for k, v in times.items())
 
-    log("slice", f"{label} stage ms: device encode [{stages(enc.stage_times)}]; host "
-        f"encode [{stages(host.stage_times)}]; device decode [{stages(dec.stage_times)}]")
+    log("slice", f"{label} stage ms: device encode [{stages(enc.stage_times)}]; entropy off "
+        f"[{stages(enc_off.stage_times)}]; host encode [{stages(host.stage_times)}]; device "
+        f"decode [{stages(dec.stage_times)}]; entropy off [{stages(dec_off.stage_times)}]")
+    if detail:
+        spans = Spans([
+            (ce, "rice_encode_blocks", "K8"),
+            (rice_device, "encode_blocks_device", "K8 + copy"),
+            (rice_device, "upload_stream", "stream upload"),
+            (ce, "rice_decode_blocks", "K9"),
+            (rice_device, "decode_blocks_payload_device", "K9 + flags copy"),
+        ])
+        try:
+            enc_i, _, enc_i_s, dec_i, _, dec_i_s = run()
+        finally:
+            spans.close()
+        ms = spans.ms
+        log("slice", f"{label} entropy split (a run with a sync after each span): encode "
+            f"{enc_i_s:.3f} s: K8 {ms['K8']:.1f} ms (count, sizes, emit; inside stage 'filters'), "
+            f"payload copy {ms['K8 + copy'] - ms['K8']:.1f} ms, framing (stage 'entropy') "
+            f"{enc_i.stage_times['entropy'] * 1e3:.1f} ms; decode {dec_i_s:.3f} s: stream upload "
+            f"{ms['stream upload']:.1f} ms, K9 {ms['K9']:.1f} ms, flags copy "
+            f"{ms['K9 + flags copy'] - ms['K9']:.1f} ms, rest of stage 'entropy' "
+            f"{dec_i.stage_times['entropy'] * 1e3 - ms['K9 + flags copy'] - ms['stream upload']:.1f} ms")
+
+        def one_each():
+            blob_t = encoder("device", "cuda").encode_whole(pcm)
+            st.Decoder(st.DecoderConfig(backend="device"), device="cuda").decode_whole(blob_t)
+
+        top, busy_ms, wall_ms = device_profile(one_each)
+        log("trace", f"{label}: one encode + one decode under torch.profiler, {wall_ms:.1f} ms "
+            f"wall, device busy {busy_ms:.1f} ms, idle share {100 * (1 - busy_ms / wall_ms):.1f} %; "
+            "top five device operations: "
+            + "; ".join(f"{name} {t:.2f} ms" for name, t in top))
     return launches
 
 
@@ -460,10 +795,10 @@ def phase_slice() -> dict:
     import sla_tpu_torch as st
 
     cd = music(300, 44100, 16, seed=2026, f_lo=180, f_hi=900)
-    launches = round_trip(st, "5 min CD stereo 44.1 kHz/16", cd, 16, 44100, 2, count=True)
+    launches = round_trip(st, "5 min CD stereo 44.1 kHz/16", cd, 16, 44100, 2, detail=True)
     del cd
     hi = music(60, 96000, 24, seed=2027, f_lo=400, f_hi=1800)
-    round_trip(st, "1 min stereo 96 kHz/24", hi, 24, 96000, 4, count=False)
+    round_trip(st, "1 min stereo 96 kHz/24", hi, 24, 96000, 4, detail=False)
     return launches
 
 
@@ -472,10 +807,12 @@ def phase_slice() -> dict:
 
 def phase_known_parameters() -> dict:
     from sla_tpu_torch import entry, pipeline
+    from sla_tpu_torch.kernels import cuda_entropy as ce
     from sla_tpu_torch.kernels import cuda_filters as cf
     from sla_tpu_torch.tools import bench_device, verify_device
 
     cf.reset_launch_counts()
+    ce.reset_launch_counts()
     for rows in bench_device.ROWS:
         for name, ok in bench_device.check_cells("cuda", rows):
             if not ok:
@@ -502,16 +839,17 @@ def phase_known_parameters() -> dict:
     log("known", f"entry forward {tuple(out.shape)} equals the plain chain; launches {launches}")
     if not all(v > 0 for v in launches.values()):
         raise AssertionError(f"known-parameter path: a kernel never launched: {launches}")
-    return launches
+    return {**launches, **ce.launches}
 
 
 def main() -> int:
     env = phase_environment()
     timing = phase_kernels(env)
+    timing.update(phase_entropy(env))
     slice_launches = phase_slice()
     known_launches = phase_known_parameters()
     record = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
          "launches": slice_launches[name] + known_launches[name], **timing[name]}
         for name in KERNELS
     ]

@@ -6,8 +6,9 @@ Decode strategy (vs. the strictly sequential reference, SLADecoder.c:660-732):
 
 1. Walk the stream once using each block header's next-block offset field —
    O(num_blocks) header peeks give every block's byte extent up front.
-2. Entropy-decode all block payloads on host (independent per block — the
-   format byte-aligns and CRC-frames each block).
+2. Entropy-decode all block payloads (independent per block — the format
+   byte-aligns and CRC-frames each block): on the host, or on the card with
+   K9 straight into the synthesis rows when the synthesis runs there.
 3. Run the whole synthesis chain (LMS -> long-term -> lattice -> de-emphasis)
    as ONE batched device stage over (blocks x channels, L): the reference
    resets all synthesizers at every block start (SLADecoder.c:637-639), which
@@ -15,8 +16,9 @@ Decode strategy (vs. the strictly sequential reference, SLADecoder.c:660-732):
 4. Inverse MS + final left shift, vectorized.
 
 Backends as in sla_tpu_torch.encoder: the device branch of step 3 is the
-port's decode stage (K3) on the decoder's torch device. 'mesh' and on-chip
-entropy decoding are not ported yet and raise.
+port's decode stage (K3) on the decoder's torch device, and step 2 then
+runs there too (K9) unless DecoderConfig.device_entropy='off'. 'mesh' is
+not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -24,8 +26,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from . import native, pipeline, rice
+from . import native, pipeline, rice, rice_device
 from .bitio import BitReader, uint32_to_sint32
 from .constants import (
     CODER_LOW_THRESHOLD_PARAMETER,
@@ -58,9 +61,10 @@ class DecoderConfig:
     enable_crc_check: bool = True
     verbose: bool = False
     backend: str = "auto"  # 'auto' | 'device' | 'host' (see EncoderConfig)
-    # on-chip entropy decode (mirror of EncoderConfig.device_entropy): not
-    # ported yet, so 'auto' and 'off' both mean host entropy and
-    # SLA_TPU_DEVICE_ENTROPY raises
+    # on-card entropy decode (mirror of EncoderConfig.device_entropy): when
+    # the synthesis batch runs on the device backend, the recursive-Rice
+    # payloads decode there too (K9), into the rows the synthesis reads.
+    # 'off' disables; SLA_TPU_DEVICE_ENTROPY forces it on any backend.
     device_entropy: str = "auto"
 
 
@@ -450,14 +454,63 @@ class Decoder:
         return pipeline.select_backend(self.config.backend, row_samples, self.device)
 
     def _device_entropy_on(self, backend: str) -> bool:
-        """Decode twin of Encoder._device_entropy_on, one shared definition:
+        """Decode twin of Encoder._device_entropy_on: on-card symbol decode
+        whenever the synthesis batch runs on the device backend;
+        SLA_TPU_DEVICE_ENTROPY forces it regardless (the batch then lands
+        on the host once for the host synthesis cascade — see
+        _decode_blocks). One shared definition with the encoder:
         pipeline.device_entropy_on."""
         return pipeline.device_entropy_on(self.config, backend)
 
-    def _device_entropy_group(self, data: bytes, grp: list, comp: list[int], L: int):
-        """On-chip entropy decode of one synthesis group's payloads
-        (sla_tpu's rice_device.rice_decode_blocks): not ported yet."""
-        raise NotImplementedError("on-chip entropy decoding is not ported to sla_tpu_torch yet")
+    def _device_entropy_group(
+        self, data: bytes, grp: list, comp: list[int], L: int,
+        words: torch.Tensor | None = None,
+    ) -> torch.Tensor | None:
+        """On-card entropy decode of one synthesis group's COMPRESSDATA
+        payloads (K9, rice_device.decode_blocks_payload_device): returns the
+        (rows, L) residual batch on the decoder's device in the synthesis
+        layout, or None when the host coder should take the whole group
+        (most of its blocks sit on the static-Golomb branch — cross-channel
+        mean effective parameter <= 8, the split the encoder uses).
+        Straggler blocks — a minority of Golomb blocks, or any payload that
+        K9 flagged (only corrupt streams do) — are decoded on the host and
+        scattered into the device batch with one index_copy_, so one quiet
+        passage does not knock the whole group off the card.
+
+        words: rice_device.upload_stream(data, device), uploaded once per
+        decode call by _decode_blocks and shared across its groups."""
+        C = self._wave_format.num_channels
+        nb = len(comp)
+        inits = np.asarray([grp[i].init_rice for i in comp], dtype=np.uint32).reshape(nb, C)
+        golomb = np.asarray([rice_device.is_golomb_block(grp[i].init_rice) for i in comp])
+        rice_j = np.flatnonzero(~golomb)
+        if 2 * len(rice_j) < nb:
+            return None  # mostly static-Golomb content: the host coder takes it
+        offs = np.asarray([grp[i].payload_bit_offset for i in comp], dtype=np.int64)
+        bits = np.asarray(
+            [(grp[i].data_offset + grp[i].block_size) * 8 - grp[i].payload_bit_offset
+             for i in comp],
+            dtype=np.int64,
+        )
+        counts = np.asarray([grp[i].num_samples for i in comp], dtype=np.int32)
+        if words is None:
+            words = rice_device.upload_stream(data, self.device)
+        # every block rides K9, the Golomb ones too: their rows are
+        # overwritten below, and B stays the group's block count
+        res, bad = rice_device.decode_blocks_payload_device(
+            data, offs, bits, counts, inits, C, L, words_arr=words,
+        )
+        host_j = np.concatenate([np.flatnonzero(golomb), rice_j[bad[rice_j]]])
+        if host_j.size:
+            # the host coder's rows for the stragglers, in one scatter: a
+            # flagged block gets the reference's output for a corrupt payload
+            hb = np.zeros((host_j.size, C, L), dtype=np.int32)
+            for k, j in enumerate(host_j):
+                blk = grp[comp[int(j)]]
+                hb[k, :, : blk.num_samples] = self._decode_payload(data, blk)
+            res.index_copy_(0, torch.from_numpy(host_j).to(res.device),
+                            torch.from_numpy(hb).to(res.device))
+        return res.view(nb * C, L)
 
     # -- whole-stream decode -----------------------------------------------------
     def decode_block(self, data: bytes, offset: int = 0) -> tuple[np.ndarray, int]:
@@ -789,6 +842,7 @@ class Decoder:
                 out = np.empty((C, total_samples), dtype=np.int32)
             t_ent = t_syn = 0.0
             off = 0
+            ent_words = None  # the stream on the device, uploaded on first use
             for g0 in range(0, len(blocks), group):
                 grp = blocks[g0 : g0 + group]
                 t0 = time.perf_counter()
@@ -798,26 +852,43 @@ class Decoder:
                 ]
                 payloads: list[np.ndarray | None] = [None] * len(grp)
                 premade = None
+                dev_premade = None
                 if comp:
                     rs = sum(grp[i].num_samples for i in comp) * C
                     backend = self._select_backend(rs)
                     if self._device_entropy_on(backend):
-                        # on-chip symbol decode (not ported yet: raises)
-                        self._device_entropy_group(data, grp, comp, L)
-                    # decode straight into the (rows, L) synthesis batch
-                    # layout: the synthesis stage consumes it zero-copy
-                    batch, decoded = native.get_data_arrays_strided(
-                        data,
-                        np.asarray([grp[i].payload_bit_offset for i in comp]),
-                        np.asarray([grp[i].num_samples for i in comp]),
-                        np.asarray([grp[i].init_rice for i in comp]),
-                        L,
-                    )
-                    for i, rows in zip(comp, decoded):
-                        payloads[i] = rows
-                    premade = batch
+                        # K9 straight into the (rows, L) synthesis layout; the
+                        # batch stays on the device for the synthesis stage
+                        if ent_words is None:
+                            ent_words = rice_device.upload_stream(data, self.device)
+                        dev_premade = self._device_entropy_group(
+                            data, grp, comp, L, ent_words
+                        )
+                    if dev_premade is not None and backend == "host":
+                        # forced device entropy (SLA_TPU_DEVICE_ENTROPY) with
+                        # host synthesis: land the batch once as a writable
+                        # array and take the host premade fast paths;
+                        # dev_premade stays set so the payload loop skips the
+                        # COMPRESSDATA blocks (their rows live in `premade`)
+                        premade = dev_premade.cpu().numpy()
+                    if dev_premade is None:
+                        # decode straight into the (rows, L) synthesis batch
+                        # layout: the synthesis stage consumes it zero-copy
+                        batch, decoded = native.get_data_arrays_strided(
+                            data,
+                            np.asarray([grp[i].payload_bit_offset for i in comp]),
+                            np.asarray([grp[i].num_samples for i in comp]),
+                            np.asarray([grp[i].init_rice for i in comp]),
+                            L,
+                        )
+                        for i, rows in zip(comp, decoded):
+                            payloads[i] = rows
+                        premade = batch
                 for i, b in enumerate(grp):
-                    if payloads[i] is None:
+                    if payloads[i] is None and (
+                        dev_premade is None
+                        or b.block_type != BlockDataType.COMPRESSDATA
+                    ):
                         payloads[i] = self._decode_payload(data, b)
                 t_ent += time.perf_counter() - t0
                 t0 = time.perf_counter()
@@ -848,7 +919,10 @@ class Decoder:
                             flush=True,
                         )
                     continue
-                outputs = self._synth_outputs(grp, payloads, premade=premade)
+                outputs = self._synth_outputs(
+                    grp, payloads,
+                    premade=dev_premade if premade is None else premade,
+                )
                 srcs: list[np.ndarray] = []
                 for i, b in enumerate(grp):
                     src = outputs.get(i)
@@ -981,8 +1055,11 @@ class Decoder:
         block index -> (C, n) rows (before the MS inverse / left shift).
 
         premade: optional (n_comp*C, L) residual batch already laid out in
-        block order (native.get_data_arrays_strided); either backend then
-        skips assembling the batch."""
+        block order: a numpy array (native.get_data_arrays_strided), which
+        either backend takes without assembling the batch, or a tensor on
+        the decoder's device (K9's output), which the device synthesis
+        takes where it lies, with no upload. The kernels take exact rows,
+        so neither is padded."""
         wf, ep = self._wave_format, self._encode_param
         C = wf.num_channels
         p, T, M = ep.parcor_order, ep.longterm_order, ep.lms_order_per_filter
@@ -999,6 +1076,12 @@ class Decoder:
             and len(comp_all) <= max_group
             and premade.shape == (len(comp_all) * C, L)
         )
+        use_dev = (
+            isinstance(premade, torch.Tensor)
+            and backend != "host"
+            and len(comp_all) <= max_group
+            and tuple(premade.shape) == (len(comp_all) * C, L)
+        )
         for g in range(0, len(comp_all), max_group):
             comp_idx = comp_all[g : g + max_group]
             B = len(comp_idx) * C
@@ -1006,10 +1089,10 @@ class Decoder:
             pitch = np.zeros((B,), dtype=np.int32)
             ltm = np.zeros((B, max(T, 1)), dtype=np.int32)
             lengths = np.zeros((B,), dtype=np.int64)
-            residual = premade if use_premade else np.zeros((B, L), dtype=np.int32)
+            residual = premade if use_premade or use_dev else np.zeros((B, L), dtype=np.int32)
             for bi, i in enumerate(comp_idx):
                 blk = blocks[i]
-                if not use_premade:
+                if not (use_premade or use_dev):
                     residual[bi * C : (bi + 1) * C, : blk.num_samples] = payloads[i]
                 _fill_block_filter_rows(blk, bi, C, coef, pitch, ltm, lengths)
             if backend == "host":
@@ -1017,8 +1100,8 @@ class Decoder:
             else:
                 dev = self.device
                 synth = pipeline.decode_stage(
-                    pipeline.to_rows(residual, dev), pipeline.to_rows(coef, dev),
-                    pitch, ltm, p, T, M,
+                    residual if use_dev else pipeline.to_rows(residual, dev),
+                    pipeline.to_rows(coef, dev), pitch, ltm, p, T, M,
                 ).cpu().numpy()
             for bi, i in enumerate(comp_idx):
                 outputs[i] = synth[bi * C : (bi + 1) * C, : blocks[i].num_samples]

@@ -14,17 +14,18 @@ Orchestration per file (EncodeWhole, SLAEncoder.c:804-932):
   4. device stage 1 (pre-emphasis + lattice predict) for ALL blocks at once,
      host pitch analysis on the PARCOR residual, device stage 2 (long-term +
      LMS predict) for all blocks at once
-  5. entropy-code each block (host), assemble header + blocks with CRC16
+  5. entropy-code each block (on the card with K8 when the filters ran
+     there, on the host otherwise), assemble header + blocks with CRC16
 
 The per-block filter work that the reference runs serially per channel
 (SLAEncoder.c:531) is a single (blocks x channels, L) batch on device.
 
 Backends: 'host' (native C++ cascade), 'device' (the port's stages on the
 encoder's torch device: the CUDA kernels K1 and K2 on a card, their plain
-versions on the CPU), 'auto' (device for big batches when that device is a
-CUDA card, host otherwise). 'mesh' is not ported yet and raises, and so do
-on-chip entropy coding (EncoderConfig.device_entropy='auto' means host
-entropy) and `encode_whole_batch`.
+versions on the CPU; entropy coding then runs there too, K8, unless
+EncoderConfig.device_entropy='off'), 'auto' (device for big batches when
+that device is a CUDA card, host otherwise). 'mesh' is not ported yet and
+raises, and so does `encode_whole_batch`.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from . import native, pipeline, rice
+from . import native, pipeline, rice, rice_device
 from .analysis.partition import search_optimal_partitions_batch
 from .analysis.pitch import longterm_coef_rows
 from .bitio import BitWriter, zigzag_encode_array
@@ -84,9 +85,11 @@ class EncoderConfig:
     # equivalent). Decode runs 6-9x faster than encode here, so the
     # overhead is a fraction of the encode cost.
     verify: bool = False
-    # entropy symbol computation on-device (sla_tpu's rice_device.py) is
-    # not ported yet: 'auto' and 'off' both mean host entropy, and
-    # SLA_TPU_DEVICE_ENTROPY raises (pipeline.device_entropy_on)
+    # entropy coding on the device (rice_device.py, K8): 'auto' = on
+    # whenever the filter batch runs on the device backend (the residual is
+    # already there; only payload bytes come back), 'off' = always host
+    # entropy. SLA_TPU_DEVICE_ENTROPY=1 forces it on, =0 off, on any
+    # backend (pipeline.device_entropy_on).
     device_entropy: str = "auto"
 
 
@@ -109,9 +112,9 @@ class _BlockPlan:
     # rows straight from it, skipping the (B, L) batch assembly copy
     raw_base: np.ndarray | None = None
     raw_off: int = 0
-    # device-coded Rice symbol parts ((n, C, 4) values, lengths) when the
-    # entropy symbols were computed on-chip alongside the filters
-    device_parts: tuple[np.ndarray, np.ndarray] | None = None
+    # this block's payload bytes (uint8) when K8 coded them on the device
+    # alongside the filters (recursive-Rice blocks only)
+    device_parts: np.ndarray | None = None
 
 
 def resolve_device(device) -> torch.device:
@@ -857,9 +860,6 @@ class Encoder:
     # -- step 4: filters + pitch analysis --------------------------------------
     def _run_filters(self, plans: list[_BlockPlan]) -> None:
         """Filters read each plan's raw_int32 view — no whole-file input."""
-        # refuse the device-entropy knob before any work (see
-        # pipeline.device_entropy_on), on every encode entry point
-        self._device_entropy_on("device")
         self._device_entropy_active = False  # set per run by attach step
         comp = [pl for pl in plans if pl.block_type == BlockDataType.COMPRESSDATA]
         if comp:
@@ -1031,15 +1031,37 @@ class Encoder:
             )
 
     def _device_entropy_on(self, backend: str) -> bool:
-        """Device entropy policy, one shared definition with the decoder:
-        pipeline.device_entropy_on (on-chip symbol coding is not ported
-        yet, so it is always False, and SLA_TPU_DEVICE_ENTROPY raises)."""
+        """Device entropy policy: on-card symbol coding is the default
+        whenever the filter batch already ran on the device backend (the
+        residual is on the card and only payload bytes come back);
+        SLA_TPU_DEVICE_ENTROPY forces it regardless. One shared definition
+        with the decoder: pipeline.device_entropy_on."""
         return pipeline.device_entropy_on(self.config, backend)
 
     def _attach_device_parts(self, rows_meta, residual2, init_all) -> None:
-        """The batched on-device Rice symbol pass (sla_tpu's
-        rice_device.rice_encode_parts): not ported yet."""
-        raise NotImplementedError("on-chip entropy coding is not ported to sla_tpu_torch yet")
+        """ONE batched K8 pass for the whole filter chunk
+        (rice_device.encode_blocks_device over the residual rows where they
+        lie): each recursive-Rice COMPRESSDATA block gets its payload bytes
+        for payload time. Static-Golomb blocks keep the host coder and get
+        none. A host residual (forced device entropy on the host backend)
+        is uploaded to the encoder's device first."""
+        res = (residual2 if isinstance(residual2, torch.Tensor)
+               else pipeline.to_rows(residual2, self.device))
+        by_channels: dict[int, list[tuple[_BlockPlan, int]]] = {}
+        for pl, C, r0 in rows_meta:
+            if (pl.block_type == BlockDataType.COMPRESSDATA
+                    and not rice_device.is_golomb_block(init_all[r0 : r0 + C])):
+                by_channels.setdefault(C, []).append((pl, r0))
+        for C, blocks in by_channels.items():
+            payload, offsets, sizes = rice_device.encode_blocks_device(
+                res, [r0 for _, r0 in blocks], [pl.num_samples for pl, _ in blocks],
+                np.stack([np.asarray(init_all[r0 : r0 + C], dtype=np.uint32)
+                          for _, r0 in blocks]),
+                C,
+            )
+            for (pl, _), off, size in zip(blocks, offsets, sizes):
+                pl.device_parts = payload[off : off + size]
+        self._device_entropy_active = True
 
     # -- step 5: block serialization (SLAEncoder.c:458-801) -------------------
     def _encode_block_payload(self, plan: _BlockPlan) -> bytes:
@@ -1116,9 +1138,15 @@ class Encoder:
                         w.put(int(zz[ch][s]), bits[ch])
         elif plan.block_type == BlockDataType.COMPRESSDATA:
             if plan.device_parts is not None or os.environ.get("SLA_TPU_DEVICE_ENTROPY"):
-                # device-coded symbols (sla_tpu's rice_device.py): not ported
-                raise NotImplementedError(
-                    "on-chip entropy coding is not ported to sla_tpu_torch yet"
+                # the payload K8 coded with the filter chunk, or this block
+                # alone on the encoder's device; byte-identical to the host
+                # coder (a set SLA_TPU_DEVICE_ENTROPY, whatever its value,
+                # takes this writer, as in the reference)
+                w.put_bytes(
+                    rice_device.encode_block_payload_device(
+                        plan.residual, plan.init_rice, parts=plan.device_parts,
+                        device=self.device,
+                    )
                 )
             elif use_native:
                 w.put_bytes(native.put_data_array(plan.residual, plan.init_rice))

@@ -1,10 +1,12 @@
 """Build and load the port's native libraries, at first use.
 
-`cuda_library()` compiles `csrc/filters.cu` with nvcc for sm_90a into a
-shared library with a plain C interface and loads it with ctypes (no
-PyTorch headers, so the build takes seconds). `host_library()` compiles the
-same bodies and schedules for the CPU with g++ (`csrc/filters_host.cpp`);
-only the tests use it, and nothing on the encode or decode path calls it.
+`cuda_library()` compiles `csrc/filters.cu` (the filter kernels K1-K7) and
+`csrc/entropy.cu` (the entropy kernels K8 and K9) with one nvcc command for
+sm_90a into a shared library with a plain C interface and loads it with
+ctypes (no PyTorch headers, so the build takes seconds). `host_library()`
+compiles the same bodies and schedules for the CPU with g++
+(`csrc/filters_host.cpp`, `csrc/entropy_host.cpp`); only the tests use it,
+and nothing on the encode or decode path calls it.
 
 Both build into `build/sla_tpu_torch/` beside the package, keyed by a hash
 of the sources and the command, under a file lock, so concurrent test
@@ -109,16 +111,17 @@ def _load(name: str, build, bind) -> ctypes.CDLL:
 
 
 def cuda_library() -> ctypes.CDLL:
-    """The CUDA kernels (csrc/filters.cu), built for sm_90a at first use."""
+    """The CUDA kernels (csrc/filters.cu, csrc/entropy.cu), built for sm_90a
+    at first use."""
 
     def build():
         return build_library(
             "sla_filters_cuda", [nvcc_path()] + NVCC_FLAGS + ["-I", str(CSRC)],
-            [CSRC / "filters.cu"], deps=_csrc_files(),
+            [CSRC / "filters.cu", CSRC / "entropy.cu"], deps=_csrc_files(),
         )
 
     def bind(lib):
-        vp, i = ctypes.c_void_p, ctypes.c_int
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         sigs = {
             "sla_lattice_predict": [vp, vp, vp, i, i, i, i, vp],
             "sla_stage2_predict": [vp, vp, vp, vp, i, i, i, i, vp],
@@ -128,6 +131,8 @@ def cuda_library() -> ctypes.CDLL:
             "sla_lms_synth": [vp, vp, i, i, i, vp],
             "sla_longterm_synth": [vp, vp, vp, vp, i, i, i, vp],
             "sla_pipe_shared_bytes": [i],
+            "sla_rice_encode_blocks": [vp, i, vp, vp, vp, i, i, vp, vp, vp, i, vp],
+            "sla_rice_decode_blocks": [vp, i64, vp, i, vp, vp, i, i, i, vp, vp, vp],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -143,11 +148,11 @@ def host_library() -> ctypes.CDLL:
     def build():
         return build_library(
             "sla_filters_host", ["g++"] + GXX_FLAGS + ["-I", str(CSRC)],
-            [CSRC / "filters_host.cpp"], deps=_csrc_files(),
+            [CSRC / "filters_host.cpp", CSRC / "entropy_host.cpp"], deps=_csrc_files(),
         )
 
     def bind(lib):
-        vp, i = ctypes.c_void_p, ctypes.c_int
+        vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         # the CUDA entries' arguments with `fixed` in place of the stream, and
         # K1's segment length, K4's and K6's role order and K5's and K7's
         # lane order after it
@@ -160,6 +165,8 @@ def host_library() -> ctypes.CDLL:
             "sla_host_lattice_synth": [vp, vp, vp, i, i, i, i, i, i],
             "sla_host_lms_synth": [vp, vp, i, i, i, i, i],
             "sla_host_longterm_synth": [vp, vp, vp, vp, i, i, i, i, i],
+            "sla_host_rice_encode_blocks": [vp, i, vp, vp, vp, i, i, vp, vp, vp, i, i],
+            "sla_host_rice_decode_blocks": [vp, i64, vp, i, vp, vp, i, i, i, vp, vp, i],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)

@@ -126,19 +126,22 @@ def select_backend(configured: str, row_samples: int, device: torch.device) -> s
 
 
 def device_entropy_on(config, backend: str) -> bool:
-    """On-chip entropy coding is not ported yet (sla_tpu/rice_device.py), so
-    the port codes symbols on the host whatever the backend: its
-    device_entropy='auto' means host entropy until that port lands. Streams
-    are byte-identical either way. SLA_TPU_DEVICE_ENTROPY is refused rather
-    than ignored: set to force the device coder on, the request cannot be
-    met, and set to anything at all, sla_tpu's host encoder reads its mere
-    presence as a device-entropy request."""
-    if os.environ.get("SLA_TPU_DEVICE_ENTROPY", "").strip():
-        raise NotImplementedError(
-            "SLA_TPU_DEVICE_ENTROPY: on-chip entropy coding is not ported to "
-            "sla_tpu_torch yet; unset it"
-        )
-    return False
+    """Shared device-entropy policy of the Encoder and Decoder (one
+    definition, so the two sides cannot drift; sla_tpu/pipeline.py
+    device_entropy_on): on-card symbol coding (K8, K9) is the default
+    whenever the filter or synthesis batch runs on the device or mesh
+    backend; SLA_TPU_DEVICE_ENTROPY forces it whatever the backend (both
+    directions then move the batch across the host/device boundary
+    themselves); config.device_entropy='off' turns the default off. The
+    variable is parsed: '0'/'off'/'false'/'no' (any case, stripped) force it
+    off, anything else non-empty forces it on, unset or empty defers to the
+    config."""
+    v = os.environ.get("SLA_TPU_DEVICE_ENTROPY", "").strip().lower()
+    if v:
+        return v not in ("0", "off", "false", "no")
+    if getattr(config, "device_entropy", "auto") == "off":
+        return False
+    return backend in ("device", "mesh")
 
 
 # sla_tpu's debug and sanitizer switches: the ASan + UBSan and -DSLA_TPU_DEBUG

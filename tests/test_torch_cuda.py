@@ -1,7 +1,8 @@
-"""The seven CUDA kernels on the card against their plain PyTorch versions
+"""The nine CUDA kernels on the card against their plain PyTorch versions
 on the same card (each also on ragged and misaligned rows), the fused
-encode against the two-stage form, K5 against K1 (a round trip), and the
-encode/decode slice on the card
+encode against the two-stage form, K5 against K1 (a round trip), the
+entropy kernels K8 and K9 also against the g++ build of their bodies and
+the host coder, and the encode/decode slice on the card
 against the host backend. Needs an NVIDIA GPU with nvcc (the kernels build
 at first use); elsewhere every test skips. Run them on a machine with a
 card:
@@ -227,3 +228,180 @@ def test_lattice_synth_inverts_predict_on_card(dev, p):
         out = cuda_filters.lattice_synth(r, coef, emphasis)
         torch.cuda.synchronize()
         assert torch.equal(out, x)
+
+
+# -- the entropy kernels: K8 (encode) and K9 (decode) --------------------------
+
+
+@pytest.fixture
+def host_lib(dev):
+    from sla_tpu_torch.kernels import build
+
+    return build.host_library()
+
+
+# (blocks, channels, samples): one block, a few with a short last one, a
+# decode group's 1,066 blocks, eight channels, mono
+ENTROPY_SHAPES = [(1, 2, 700), (3, 2, 1500), (1066, 2, 300), (5, 8, 400), (4, 1, 2000)]
+
+
+@pytest.mark.parametrize("B,C,L", ENTROPY_SHAPES)
+def test_rice_encode_blocks_on_card(dev, host_lib, B, C, L):
+    """K8's buffer equals its plain version's and the g++ build's byte for
+    byte, and every block's payload is the host coder's."""
+    from sla_tpu_torch import native
+    from sla_tpu_torch.kernels import cuda_entropy
+    from sla_tpu_torch.tools.verify_device import entropy_blocks
+
+    from .test_torch_hostbuild import host_rice_encode
+
+    rows, counts, inits = entropy_blocks(B * 7 + C + L, B, C, L, 3000.0)
+    row0 = np.arange(0, B * C, C, dtype=np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (rows, row0, counts, inits.astype(np.int64))]
+    got = cuda_entropy.rice_encode_blocks(*args, C)
+    torch.cuda.synchronize()
+    want = cuda_entropy.rice_encode_blocks_plain(*args, C)
+    host = host_rice_encode(host_lib, rows, row0, counts, inits, C)
+    for a, b, h in zip(got, want, host):
+        assert torch.equal(a, b)
+        assert np.array_equal(a.cpu().numpy(), h)
+    payload, offsets, sizes = (t.cpu().numpy() for t in got)
+    for b in range(min(B, 8)):
+        block = rows[b * C : (b + 1) * C, : counts[b]]
+        assert (payload[offsets[b] : offsets[b] + sizes[b]].tobytes()
+                == native.put_data_array(block, list(inits[b])))
+
+
+@pytest.mark.parametrize("B,C,L", ENTROPY_SHAPES)
+def test_rice_decode_blocks_on_card(dev, host_lib, B, C, L):
+    """K9 on payloads at every bit alignment gives the host coder's rows and
+    no flag; with every flag condition planted (a long unary run, a long
+    gamma code, a cursor past the window), the flags and the unflagged
+    rows of its plain version and of the g++ build."""
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.kernels import cuda_entropy
+    from sla_tpu_torch.tools import verify_device as vd
+
+    from .test_torch_hostbuild import host_rice_decode
+
+    rows, counts, inits = vd.entropy_blocks(B * 11 + C + L, B, C, L, 3000.0)
+    stream, offs, bits = vd.entropy_stream(B + C + 1, rows, counts, inits, C)
+    cases = [(stream, bits), (stream, np.full_like(bits, 64))]
+    if B >= 2:
+        cases.append((vd.corrupt_entropy_stream(stream, offs), bits))
+    for data, region in cases:
+        (k_rows, k_bad), (p_rows, p_bad) = vd.decode_entropy_stream(
+            dev, data, offs, region, counts, inits, C, L)
+        torch.cuda.synchronize()
+        assert cuda_entropy.decode_agrees(k_rows, k_bad, p_rows, p_bad, C)[0]
+        words = rice_device.upload_stream(data, "cpu").numpy()
+        h_rows, h_bad = host_rice_decode(host_lib, words, offs,
+                                         rice_device.window_width(offs, region), counts,
+                                         inits.astype(np.int64), C, L)
+        assert cuda_entropy.decode_agrees(k_rows.cpu(), k_bad.cpu(), torch.from_numpy(h_rows),
+                                          torch.from_numpy(h_bad), C)[0]
+        if data is stream and region is bits:
+            assert not bool(k_bad.any())
+            assert np.array_equal(k_rows.cpu().numpy(), rows)
+        elif data is not stream:
+            assert bool(k_bad[:2].all())
+
+
+def test_entropy_kernels_count_their_launches(dev):
+    """Each wrapper adds one to its own count per kernel run (K8's count and
+    emit launches are one run), apart from the filter kernels' counts."""
+    from sla_tpu_torch.kernels import cuda_entropy
+    from sla_tpu_torch.tools import verify_device as vd
+
+    before_filters = dict(cuda_filters.launches)
+    cuda_entropy.reset_launch_counts()
+    rows, counts, inits = vd.entropy_blocks(1, 3, 2, 500, 3000.0)
+    args = [torch.from_numpy(a).to(dev) for a in (rows, np.arange(0, 6, 2, dtype=np.int32),
+                                                   counts, inits.astype(np.int64))]
+    cuda_entropy.rice_encode_blocks(*args, 2)
+    stream, offs, bits = vd.entropy_stream(2, rows, counts, inits, 2)
+    vd.decode_entropy_stream(dev, stream, offs, bits, counts, inits, 2, 500)
+    torch.cuda.synchronize()
+    assert cuda_entropy.launches == {"rice_encode_blocks": 1, "rice_decode_blocks": 1}
+    assert cuda_filters.launches == before_filters
+
+
+def test_codec_on_card_entropy_on_and_off(dev):
+    """The device backend codes entropy on the card by default (K8, K9) and
+    writes the host backend's stream; with device_entropy='off' too."""
+    import sla_tpu_torch as st
+    from sla_tpu_torch.kernels import cuda_entropy
+
+    rng = np.random.default_rng(6)
+    pcm = rng.integers(-8000, 8000, (2, 60000)).astype(np.int32) << 16
+
+    def encode(backend, device, **kw):
+        enc = st.Encoder(st.EncoderConfig(backend=backend, **kw), device=device)
+        enc.set_wave_format(st.WaveFormat(2, 16, 44100))
+        enc.set_encode_parameter(st.PRESETS[2])
+        return enc, enc.encode_whole(pcm)
+
+    cuda_entropy.reset_launch_counts()
+    _, host_blob = encode("host", "cpu")
+    enc, blob = encode("device", "cuda")
+    assert enc._device_entropy_active and blob == host_blob
+    enc_off, blob_off = encode("device", "cuda", device_entropy="off")
+    assert not enc_off._device_entropy_active and blob_off == host_blob
+    for kw in ({}, {"device_entropy": "off"}):
+        dec = st.Decoder(st.DecoderConfig(backend="device", **kw), device="cuda")
+        assert np.array_equal(dec.decode_whole(blob)[1], pcm)
+    assert cuda_entropy.launches["rice_encode_blocks"] > 0
+    assert cuda_entropy.launches["rice_decode_blocks"] > 0
+
+
+def test_codec_on_card_host_stragglers(dev, monkeypatch):
+    """The decode's host stragglers on the card: a static-Golomb block in a
+    loud stream, then a payload that K9 flags (64 zeroed bytes, CRC off),
+    are decoded by the host coder and scattered into the card's residual
+    batch; the results equal the host backend's."""
+    import dataclasses
+
+    import sla_tpu_torch as st
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.constants import BlockDataType
+
+    param = dataclasses.replace(st.PRESETS[2], max_num_block_samples=4096)
+    rng = np.random.default_rng(6)
+    loud = rng.integers(-8000, 8000, (2, 12288)).astype(np.int32) << 16
+    quiet = rng.integers(-2, 3, (2, 4096)).astype(np.int32) << 16
+    pcm = np.concatenate([loud[:, :8192], quiet, loud[:, 8192:]], axis=1)
+    enc = st.Encoder(st.EncoderConfig(backend="host"), device="cpu")
+    enc.set_wave_format(st.WaveFormat(2, 16, 44100))
+    enc.set_encode_parameter(param)
+    blob = enc.encode_whole(pcm)
+
+    flagged = []
+    decode_payloads = rice_device.decode_blocks_payload_device
+
+    def spy(*args, **kwargs):
+        res, bad = decode_payloads(*args, **kwargs)
+        assert res.is_cuda
+        flagged.append(np.flatnonzero(bad).tolist())
+        return res, bad
+
+    monkeypatch.setattr(rice_device, "decode_blocks_payload_device", spy)
+
+    def decode(backend, device, data):
+        cfg = st.DecoderConfig(enable_crc_check=False, backend=backend)
+        return st.Decoder(cfg, device=device).decode_whole(data)[1]
+
+    dec = st.Decoder(st.DecoderConfig(backend="device"), device="cuda")
+    header = dec._open_stream(blob)
+    blocks = dec.scan_blocks(blob, header.num_samples)
+    comp = [i for i, b in enumerate(blocks) if b.block_type == BlockDataType.COMPRESSDATA]
+    golomb = [rice_device.is_golomb_block(blocks[i].init_rice) for i in comp]
+    assert any(golomb) and not all(golomb)
+    assert np.array_equal(decode("device", "cuda", blob), pcm)
+    assert flagged == [[]]
+
+    start = blocks[comp[0]].payload_bit_offset // 8 + 200
+    corrupt = blob[:start] + bytes(64) + blob[start + 64:]
+    flagged.clear()
+    got = decode("device", "cuda", corrupt)
+    assert flagged == [[0]]
+    assert np.array_equal(got, decode("host", "cpu", corrupt))

@@ -334,3 +334,109 @@ def test_lattice_synth_lanes_match_plain(lib, p, emphasis, fixed, reverse):
         x, coef, plain = _lattice_synth_case(B, L, p, emphasis)
         k5 = _call(lib, "sla_host_lattice_synth", x, coef, B, L, p, emphasis, fixed, reverse)
         assert np.array_equal(k5, plain), (B, L)
+
+
+# -- the entropy kernels' bodies (csrc/entropy.cuh): K8 and K9 ----------------
+
+
+def host_rice_encode(lib, rows, row0, counts, inits, C, fixed=1):
+    """K8's body through the g++ build: the count pass, the 4-byte aligned
+    exclusive sum, the emit pass. Returns (payload, offsets, sizes)."""
+    rows = np.ascontiguousarray(rows, dtype=np.int32)
+    r0 = np.ascontiguousarray(row0, dtype=np.int32)
+    cnt = np.ascontiguousarray(counts, dtype=np.int32)
+    ini = np.ascontiguousarray(inits, dtype=np.int64)
+    B, L = len(cnt), rows.shape[1]
+    sizes = np.empty(B, dtype=np.int64)
+    args = (rows.ctypes.data, L, r0.ctypes.data, cnt.ctypes.data, ini.ctypes.data, B, C)
+    lib.sla_host_rice_encode_blocks(*args, None, None, sizes.ctypes.data, 0, fixed)
+    padded = (sizes + 3) & ~3
+    offsets = np.cumsum(padded) - padded
+    out = np.zeros(max(int(padded.sum()), 4), dtype=np.uint8)
+    lib.sla_host_rice_encode_blocks(*args, offsets.ctypes.data, out.ctypes.data,
+                                    sizes.ctypes.data, 1, fixed)
+    return out[: int(padded.sum())], offsets, sizes
+
+
+def host_rice_decode(lib, stream, offsets, W, counts, inits, C, n_max, fixed=1):
+    """K9's body through the g++ build on the uint8 stream (a whole number
+    of words, the last zero). Returns (rows (B*C, n_max), bad (B,))."""
+    buf = np.ascontiguousarray(stream, dtype=np.uint8)
+    offs = np.ascontiguousarray(offsets, dtype=np.int64)
+    cnt = np.ascontiguousarray(counts, dtype=np.int32)
+    ini = np.ascontiguousarray(inits, dtype=np.int64)
+    B = len(cnt)
+    rows = np.empty((B * C, n_max), dtype=np.int32)
+    bad = np.empty(B, dtype=np.uint8)
+    lib.sla_host_rice_decode_blocks(buf.ctypes.data, buf.size // 4, offs.ctypes.data, W,
+                                    cnt.ctypes.data, ini.ctypes.data, B, C, n_max,
+                                    rows.ctypes.data, bad.ctypes.data, fixed)
+    return rows, bad.astype(bool)
+
+
+# (blocks, channels, samples): one block, a short last block among a few,
+# eight channels, mono
+ENTROPY_CASES = [(1, 2, 700), (3, 2, 1500), (4, 8, 300), (5, 1, 900)]
+
+
+@pytest.mark.parametrize("fixed", [1, 0])
+@pytest.mark.parametrize("B,C,L", ENTROPY_CASES)
+def test_rice_encode_body_matches_plain_and_host_coder(lib, B, C, L, fixed):
+    """K8's body (count, then emit) gives the plain version's buffer byte for
+    byte, and each block's payload is the host coder's (the compile-time
+    channel count for C 1 and 2 with fixed 1, the run-time one otherwise)."""
+    from sla_tpu_torch import native
+    from sla_tpu_torch.kernels import cuda_entropy
+    from sla_tpu_torch.tools.verify_device import entropy_blocks
+
+    rows, counts, inits = entropy_blocks(B * 31 + C + L, B, C, L, 3000.0)
+    row0 = np.arange(0, B * C, C, dtype=np.int32)
+    got = host_rice_encode(lib, rows, row0, counts, inits, C, fixed)
+    want = cuda_entropy.rice_encode_blocks_plain(
+        torch.from_numpy(rows), torch.from_numpy(row0), torch.from_numpy(counts),
+        torch.from_numpy(inits.astype(np.int64)), C)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b.numpy())
+    payload, offsets, sizes = got
+    for b in range(B):
+        block = rows[b * C : (b + 1) * C, : counts[b]]
+        assert (payload[offsets[b] : offsets[b] + sizes[b]].tobytes()
+                == native.put_data_array(block, list(inits[b])))
+
+
+@pytest.mark.parametrize("fixed", [1, 0])
+@pytest.mark.parametrize("B,C,L", ENTROPY_CASES)
+def test_rice_decode_body_matches_plain(lib, B, C, L, fixed):
+    """K9's body on payloads at every bit alignment gives the host coder's
+    rows and no flag, as the plain version does; with the flag conditions
+    planted, the same flags and the same unflagged rows."""
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.kernels import cuda_entropy
+    from sla_tpu_torch.tools import verify_device as vd
+
+    rows, counts, inits = vd.entropy_blocks(B * 37 + C + L, B, C, L, 3000.0)
+    stream, offs, bits = vd.entropy_stream(B + C, rows, counts, inits, C)
+    # a cursor past the window (512 words from the block's first word)
+    # flags every payload longer than it and no payload well inside it
+    window = 512 * 32
+    short = np.where(bits > window + 64, True, np.where(bits < window - 64, False, None))
+    cases = [(stream, bits, np.zeros(B, dtype=object)), (stream, np.full_like(bits, 64), short)]
+    if B >= 2:
+        planted = np.zeros(B, dtype=object)
+        planted[:2] = True
+        cases.append((vd.corrupt_entropy_stream(stream, offs), bits, planted))
+    for data, region, flags in cases:
+        words = rice_device.upload_stream(data, "cpu")
+        W = rice_device.window_width(offs, region)
+        k_rows, k_bad = host_rice_decode(lib, words.numpy(), offs, W, counts,
+                                         inits.astype(np.int64), C, L, fixed)
+        p_rows, p_bad = cuda_entropy.rice_decode_blocks_plain(
+            words, torch.from_numpy(offs), W, torch.from_numpy(counts),
+            torch.from_numpy(inits.astype(np.int64)), C, L)
+        ok, _ = cuda_entropy.decode_agrees(torch.from_numpy(k_rows), torch.from_numpy(k_bad),
+                                           p_rows, p_bad, C)
+        assert ok
+        known = flags != None  # noqa: E711 (elementwise)
+        assert np.array_equal(k_bad[known], flags[known].astype(bool))
+        if data is stream and region is bits:
+            assert np.array_equal(k_rows, rows)

@@ -109,17 +109,6 @@ def test_mesh_backend_raises():
         st.Decoder(st.DecoderConfig(backend="mesh"), device="cpu").decode_whole(blob)
 
 
-@pytest.mark.parametrize("value", ["1", "0"])
-def test_device_entropy_knob_raises(monkeypatch, value):
-    pcm, bits, rate = _stereo_second(seed=16, n=20000)
-    blob = _encode(sla_tpu, pcm, bits, rate, 1, "host")
-    monkeypatch.setitem(os.environ, "SLA_TPU_DEVICE_ENTROPY", value)
-    with pytest.raises(NotImplementedError, match="SLA_TPU_DEVICE_ENTROPY"):
-        _encode(st, pcm, bits, rate, 1, "device", device="cpu")
-    with pytest.raises(NotImplementedError, match="SLA_TPU_DEVICE_ENTROPY"):
-        st.Decoder(st.DecoderConfig(backend="device"), device="cpu").decode_whole(blob)
-
-
 @pytest.mark.parametrize("name", ["SLA_TPU_SANITIZE", "SLA_TPU_NATIVE_DEBUG",
                                   "SLA_TPU_DEBUG_ASSERTS"])
 def test_debug_and_sanitizer_variables_raise(monkeypatch, name):

@@ -17,7 +17,7 @@ def no_cuda(monkeypatch):
 def test_verify_checks_pass_on_cpu():
     results = verify_device.run_checks("cpu", rows=8, samples=2048, cascade_rows=8,
                                        pcm_samples=4096)
-    assert len(results) == 14
+    assert len(results) == 20  # 14 filter and codec checks, 2d's four, 3b and 4b
     assert [name for name, ok in results if not ok] == []
 
 
