@@ -23,14 +23,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
    again, exact too, on rows whose lags are all 32 or more; every kernel's
    ptxas resources and the shared memory of K2-K4, K6 and K7, and K1-K7's
    times beside the previous commit's kernels on the same inputs
-   (previous, new, new, previous), each called through its own commit's
-   wrappers, when that package was unpacked; then K8 and K9 against their
-   plain versions at the same 2,048 rows x 12,288 (1,024 stereo blocks,
-   residual scales spread over 2^12, INT32 extremes for gamma escapes; K9
-   on the host coder's payloads at every bit alignment), exact, timed, each
-   bound from the symbols' paths through the bodies, then timed at 1 block
-   (one lane of a warp) and 32 (one warp) with the SM clock under load,
-   beside the previous commit's K8 and K9 when it has them;
+   (previous, new, new, previous, each the median of three such
+   sequences), each called through its own commit's
+   wrappers, when that package was unpacked (K1-K7 unchanged: each must
+   read 1.00 within 3 %); then K8 and K9 against their plain versions at
+   the same 2,048 rows x 12,288 (1,024 stereo blocks, residual scales
+   spread over 2^12, INT32 extremes for gamma escapes; K9 on the host
+   coder's payloads at every bit alignment), exact, timed, each bound from
+   the symbols' paths through the bodies; the new schedules' chains alone:
+   K9 at 1 block (one warp) and 32, K8's chain pass (raw, emit 0) at one
+   warp's blocks and all, its emit pass alone, in cycles a symbol or a step
+   at the SM clock read under load; K8 and K9 at the preset-4 clip's block
+   shape (384 stereo blocks x 16,384; K8's payloads decoded back by K9 and
+   K9 on the host coder's stream, both equal to the residuals); and at both
+   shapes beside the previous commit's K8 and K9 when it has them;
 3. slice: five minutes of seeded CD stereo (44.1 kHz, 16 bit) at preset 2
    through Encoder/Decoder(backend='device', device='cuda'), entropy on the
    card by default (K8, K9) — the stream must equal backend='host' byte for
@@ -250,13 +256,13 @@ def bound(name, B, L, p, T, M, md, int32_per_s) -> tuple[float, str]:
 
 
 def pipe_resources(lib) -> None:
-    """Every kernel's ptxas registers, stack and spills per instantiation,
-    the pipelines' (K2-K4, K6) dynamic shared memory per block and K5's and
-    K7's static rings."""
+    """Every kernel's ptxas registers, stack and spills per instantiation
+    (K8's chain and emit passes apart), the pipelines' (K2-K4, K6) dynamic
+    shared memory per block and K5's and K7's static rings."""
     from sla_tpu_torch.kernels import build
 
     names = ("lattice_predict|stage2_predict|synth_cascade|fused_encode|lattice_synth|"
-             "lms_synth|longterm_synth|rice_encode_blocks|rice_decode_blocks")
+             "lms_synth|longterm_synth|rice_chain|rice_emit|rice_decode")
     current = None
     for ln in build.build_log().splitlines():
         m = re.search(rf"Compiling entry function '\S*?({names})_kernelI(\w*?)EEv", ln)
@@ -290,8 +296,8 @@ def ctypes_call(lib, fn, data, *args):
 
 # the kernels whose code this commit did not change: their ratio must read
 # 1.00 within 3 %
-UNCHANGED = ("lattice_predict", "stage2_predict", "synth_cascade", "fused_encode", "lms_synth",
-             "longterm_synth")
+UNCHANGED = ("lattice_predict", "stage2_predict", "synth_cascade", "fused_encode",
+             "lattice_synth", "lms_synth", "longterm_synth")
 
 
 def kernel_calls(cf, x, coef, md, q15, r1, M) -> dict:
@@ -308,6 +314,15 @@ def kernel_calls(cf, x, coef, md, q15, r1, M) -> dict:
     }
 
 
+def four_times(prev, new, reps: int, rounds: int = 3) -> list[float]:
+    """Milliseconds a call of the previous and the new kernel in the order
+    previous, new, new, previous, each position the median of `rounds`
+    such sequences: the wrappers of K2-K4 and K7 sync with the host, whose
+    cores the card's machine shares, so one sequence can catch a stall."""
+    runs = [[cuda_ms(f, reps, warmup=1) for f in (prev, new, new, prev)] for _ in range(rounds)]
+    return [float(np.median(col)) for col in zip(*runs)]
+
+
 def parent_times(parent, x, coef, md, q15, r1, M, reps: int = 5) -> dict:
     """The previous K1-K7 against the new ones on the same inputs, in the
     order previous, new, new, previous; both must give the same rows. Both
@@ -322,7 +337,7 @@ def parent_times(parent, x, coef, md, q15, r1, M, reps: int = 5) -> dict:
         prev, new = prev_calls[name], new_calls[name]
         if not torch.equal(prev(), new()):
             raise AssertionError(f"{name}: the previous and the new kernel differ")
-        t = [cuda_ms(f, reps, warmup=1) for f in (prev, new, new, prev)]
+        t = four_times(prev, new, reps)
         ratio = (t[0] + t[3]) / (t[1] + t[2])
         out[name] = t
         note = ""
@@ -408,27 +423,34 @@ def phase_kernels(env: dict) -> dict:
 # int32 operations of one symbol on each path it can take, counted from the
 # bodies in csrc/entropy.cuh (a 64-bit add, or, shift or widening multiply
 # counts 2; loads, stores and loop control are not counted), and of one
-# 32-bit word of payload written (K8) or read (K9). K8 is one encode, its
-# emit pass: the count pass is this design's cost, not the function's.
-#   K8, every symbol 23: zigzag 3; stage 0's rice_bits 8 (shr, add, shr,
-#     max, sub, clz, sub, and); k0 1; param_update 10 (shl, mul, widening
-#     mul 2, two 64-bit adds 4, 64-bit shr 2); the u < k0 test 1.
-#     Stage 0: + two puts 14 (a put: 64-bit shl and or 4, the bit count's
-#     add and test 2; the remainder's mask 2 more) = 37. Stage 1: + its
-#     rice_bits 8, u - k0 1, param_update 10, q and the remainder's mask 4,
-#     the q test 1 (47), the unary put 7 and the remainder's 6 = 60. Escape:
-#     47 + gamma and ndigit 3 + four puts 25 = 75. A word written: 6 (the
-#     count's sub, 64-bit shr 2, bswap, the 64-bit index 2).
-#   K9, stage 0: rice_bits 8, refill test 1, clz64 2, the quot test 1, skip
-#     and cursor 6, kb 1, refill test 1, top 3, skip and cursor 5, the limit
-#     test 2, k0 1, param_update 10, unzigzag 4 = 45. Stage 1: + its
-#     rice_bits 8, the escape test 1, the value 4, val - k0 and param_update
-#     11, two selects 2 = 71. Escape: + refill test, clz64 and the gz test 4,
-#     skip 4, refill test and top 4, the quotient 8, skip 3, cursor 3 = 97.
-#     A word read: 8 (64-bit shl and or 4, the bit count 2, the index 2).
+# 32-bit word of payload written (K8) or read (K9). K8 is one encode of the
+# symbol: its parameters, its code and its placement, each value once; the
+# chain pass's length sum, its branch-free stage-1 update of stage-0
+# symbols and the emit pass's second zigzag and record unpacking are this
+# design's cost of splitting the chain from the bits, not the function's.
+#   K8, every symbol: zigzag 3; stage 0's rice_bits 7 (shr, add, shr, sub,
+#     clz, sub, and); k0 1; param_update 7 (shl, mul, add, the widening
+#     multiply-add 2, 64-bit shr 2); the u < k0 test 1; the placement 15
+#     (the length's share of the scan 3, the position 2, or_code's word,
+#     offset, end and test 4, its 64-bit shift 2, two ORs 2, the tail's
+#     start 2). Stage 0: + the tail and length 2 = 36. Stage 1: + its
+#     rice_bits 7, u - k0 and param_update 8, q, the remainder's mask and
+#     the q test 5, the length and tail 5 = 59. Escape: stage 1 less its
+#     length and tail, + gamma and ndigit 3, the length 5, the 64-bit tail
+#     10, a third ORed word 3 = 75. A word written: 2 (bswap, index).
+#   K9, every symbol: both rice_bits 14; the window 8 (word index 2, offset,
+#     two funnel shifts 2, top's clz and sub 2, the run's test); the
+#     remainder 7 (kb's select, the end 2, the shift count, a funnel shift,
+#     top_bits 2); the path's tests 2 (a run under 16, the limit); the
+#     value's unzigzag 4. Stage 0: + the value's select 1, param_update 7 =
+#     43. Stage 1: + k0 and the value 5, the stage-1 update with its sub and
+#     select 9 = 57. Escape: stage 1 less the remainder's 7, + three ring
+#     windows 15, clz and the gz test 2, the positions 4, the quotient 3, two
+#     top_bits 4, the end and the limit test 2 = 80. A word read: 8 (the
+#     staged word's 64-bit index 2 and clamp 4, its bswap, the ring slot).
 ENTROPY_OPS = {
-    "rice_encode_blocks": {"stage0": 37, "stage1": 60, "escape": 75, "word": 6},
-    "rice_decode_blocks": {"stage0": 45, "stage1": 71, "escape": 97, "word": 8},
+    "rice_encode_blocks": {"stage0": 36, "stage1": 59, "escape": 75, "word": 2},
+    "rice_decode_blocks": {"stage0": 43, "stage1": 57, "escape": 80, "word": 8},
 }
 
 
@@ -479,10 +501,10 @@ def parent_entropy(parent):
 
 def previous_vs_new(name: str, prev, new, same, reps: int = 3) -> None:
     """The previous and the new kernel on the same inputs: the same result,
-    then times in the order previous, new, new, previous."""
+    then times in the order previous, new, new, previous (four_times)."""
     if not same(prev(), new()):
         raise AssertionError(f"{name}: the previous and the new kernel differ")
-    t = [cuda_ms(f, reps, warmup=1) for f in (prev, new, new, prev)]
+    t = four_times(prev, new, reps)
     log("kernels", f"{name} previous / new / new / previous: "
         + " / ".join(f"{v:.3f}" for v in t) + f" ms (x{(t[0] + t[3]) / (t[1] + t[2]):.2f})")
 
@@ -524,7 +546,7 @@ def phase_entropy(env: dict) -> dict:
         raise AssertionError(f"entropy paths {paths} do not add up to {symbols} symbols")
     log("kernels", f"entropy symbol paths: stage 0 {paths[0]}, stage 1 {paths[1]}, gamma escape "
         f"{paths[2]}")
-    ms = cuda_ms(k8, 5, warmup=1)
+    ms = cuda_ms(k8, 5, warmup=2)  # the clocks ramp back up after the plain version
     bound_ms, bound_by, ops = entropy_bound("rice_encode_blocks", paths, payload_bytes // 4,
                                             4 * symbols + payload_bytes, env["int32_per_s"])
     results["rice_encode_blocks"] = {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
@@ -550,7 +572,7 @@ def phase_entropy(env: dict) -> dict:
     if not ok or bool(k_bad.any()) or not torch.equal(k_rows, x):
         raise AssertionError(f"rice_decode_blocks: K9 differs from its plain version or the host "
                              f"coder (max |err| {err}, {int(k_bad.sum())} blocks flagged)")
-    ms = cuda_ms(k9, 5, warmup=1)
+    ms = cuda_ms(k9, 5, warmup=2)
     bound_ms, bound_by, ops = entropy_bound("rice_decode_blocks", paths, len(stream) // 4,
                                             4 * symbols + len(stream), env["int32_per_s"])
     results["rice_decode_blocks"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -560,7 +582,7 @@ def phase_entropy(env: dict) -> dict:
         f"the host coder's input, kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
         f"{bound_ms:.3f} ms ({bound_by}; {ops / 1e9:.2f} G ops, {ops / symbols:.1f} a symbol; "
         f"{(4 * symbols + len(stream)) / 1e6:.1f} MB; {100 * bound_ms / ms:.1f} % of it reached)")
-    entropy_lanes(env, ce, x, row0, cnt, ini, C, L, words, o, W)
+    entropy_lanes(ce, x, row0, cnt, ini, C, L, words, o, W)
     prev = parent_entropy(env["parent"])
     if prev is not None:
         previous_vs_new("rice_encode_blocks",
@@ -569,38 +591,105 @@ def phase_entropy(env: dict) -> dict:
         previous_vs_new("rice_decode_blocks",
                         lambda: prev.rice_decode_blocks(words, o, W, cnt, ini, C, L), k9,
                         lambda a, b: ce.decode_agrees(*a, *b, C)[0])
+    entropy_preset4_shape(ce, prev)
     return results
 
 
-
-def entropy_lanes(env, ce, x, row0, cnt, ini, C: int, L: int, words, o, W: int) -> None:
-    """Where K8's and K9's time goes: each at 1 block (one lane of a warp),
-    32 (one whole warp) and all blocks, K8's count pass alone (raw ctypes,
-    emit 0), the SM clock nvidia-smi reads while count passes run, and the
-    cycles a symbol of the slowest lane at that clock."""
+def entropy_lanes(ce, x, row0, cnt, ini, C: int, L: int, words, o, W: int) -> None:
+    """The new schedules' chains alone, raw (ctypes, no wrapper checks): K9
+    at 1 block (one warp on the card), 32 and all, in cycles a symbol of a
+    block; K8's chain pass (emit 0) at one chain warp's blocks and at all,
+    in cycles a step of a row, and its emit pass alone; all at the SM clock
+    nvidia-smi reads while K9 runs on every block."""
     lib = ce.cuda_library()
-    B = cnt.shape[0]
-    sizes = torch.empty((B,), dtype=torch.int64, device=x.device)
+    B, dev = cnt.shape[0], x.device
+    sizes = torch.empty((B,), dtype=torch.int64, device=dev)
+    recs = torch.empty((B * L * C,), dtype=torch.int16, device=dev)
+    rows = torch.empty((B * C, L), dtype=torch.int32, device=dev)
+    bad = torch.empty((B,), dtype=torch.uint8, device=dev)
 
-    def count_pass():
-        lib.sla_rice_encode_blocks(
-            x.data_ptr(), L, row0.data_ptr(), cnt.data_ptr(), ini.data_ptr(), B, C, None, None,
-            sizes.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
+    def check(err, fn):
+        if err:
+            raise RuntimeError(f"{fn}: cudaError {err}")
 
-    count_ms = cuda_ms(count_pass, 5, warmup=1)
-    mhz = sm_clock_under(count_pass, max(1, int(1500 / max(count_ms, 0.1))))
+    def encode(k, emit, offsets=None, payload=None):
+        check(lib.sla_rice_encode_blocks(
+            x.data_ptr(), L, row0.data_ptr(), cnt.data_ptr(), ini.data_ptr(), k, C,
+            offsets.data_ptr() if emit else None, payload.data_ptr() if emit else None,
+            sizes.data_ptr(), recs.data_ptr(), emit, torch.cuda.current_stream().cuda_stream),
+            "sla_rice_encode_blocks")
+
+    def decode(k):
+        check(lib.sla_rice_decode_blocks(
+            words.data_ptr(), words.numel() // 4, o.data_ptr(), W, cnt.data_ptr(), ini.data_ptr(),
+            k, C, L, rows.data_ptr(), bad.data_ptr(), torch.cuda.current_stream().cuda_stream),
+            "sla_rice_decode_blocks")
+
+    decode_ms = cuda_ms(lambda: decode(B), 5, warmup=1)
+    mhz = sm_clock_under(lambda: decode(B), max(1, int(1500 / max(decode_ms, 0.1))))
     cells = []
-    for name, run in (
-        ("rice_encode_blocks", lambda k: ce.rice_encode_blocks(x, row0[:k], cnt[:k], ini[:k], C)),
-        ("rice_decode_blocks", lambda k: ce.rice_decode_blocks(words, o[:k], W, cnt[:k], ini[:k],
-                                                               C, L)),
-    ):
-        for k in (1, 32, B):
-            ms = cuda_ms(lambda: run(k), 5, warmup=1)
-            per = ms * 1e-3 * mhz * 1e6 / (int(cnt[:k].max()) * C)
-            cells.append(f"{name} {k} blocks {ms:.3f} ms ({per:.0f} cycles a symbol)")
-    log("kernels", f"entropy lanes at clocks.sm {mhz:.0f} MHz under K8's count pass ({count_ms:.3f} "
-        f"ms at {B} blocks): " + "; ".join(cells))
+    for k in (1, 32, B):
+        ms = cuda_ms(lambda: decode(k), 5, warmup=1)
+        per = ms * 1e-3 * mhz * 1e6 / (int(cnt[:k].max()) * C)
+        cells.append(f"K9 {k} blocks {ms:.3f} ms ({per:.1f} cycles a symbol)")
+    for k in (32 // C, B):
+        ms = cuda_ms(lambda: encode(k, 0), 5, warmup=1)
+        per = ms * 1e-3 * mhz * 1e6 / int(cnt[:k].max())
+        cells.append(f"K8 chain pass {k} blocks {ms:.3f} ms ({per:.1f} cycles a step)")
+    encode(B, 0)
+    padded = (sizes + 3) & ~3
+    offsets = torch.cumsum(padded, 0) - padded
+    payload = torch.empty((max(int(padded.sum()), 4),), dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: encode(B, 1, offsets, payload), 5, warmup=1)
+    cells.append(f"K8 emit pass {B} blocks {ms:.3f} ms")
+    log("kernels", f"entropy chains at clocks.sm {mhz:.0f} MHz under K9 on {B} blocks: "
+        + "; ".join(cells))
+
+
+def entropy_preset4_shape(ce, prev) -> None:
+    """K8 and K9 at the preset-4 clip's block shape, 384 stereo blocks x
+    16,384: K8's payloads decoded back by K9 and K9 on the host coder's
+    stream both give the residuals, unflagged; timed, and beside the
+    previous commit's kernels when it has them."""
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.tools import verify_device as vd
+
+    B, C, L = 384, 2, 16384
+    rows, counts, inits = vd.entropy_blocks(2028, B, C, L, 3000.0, spread=6.0)
+    stream, offs, bits = vd.entropy_stream(2029, rows, counts, inits, C)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rows).to(dev)
+    row0 = torch.arange(0, B * C, C, dtype=torch.int32, device=dev)
+    cnt = torch.from_numpy(counts).to(dev)
+    ini = torch.from_numpy(inits.astype(np.int64)).to(dev)
+    k8 = lambda: ce.rice_encode_blocks(x, row0, cnt, ini, C)  # noqa: E731
+    payload, offsets, sizes = k8()
+    padded = ((sizes + 3) & ~3).cpu().numpy()
+    back = torch.cat([payload, torch.zeros((16,), dtype=torch.uint8, device=dev)])
+    starts = offsets * 8
+    r8, bad8 = ce.rice_decode_blocks(back, starts, rice_device.window_width(
+        starts.cpu().numpy(), 8 * padded), cnt, ini, C, L)
+    words = rice_device.upload_stream(stream, dev)
+    o = torch.from_numpy(offs).to(dev)
+    W = rice_device.window_width(offs, bits)
+    k9 = lambda: ce.rice_decode_blocks(words, o, W, cnt, ini, C, L)  # noqa: E731
+    r9, bad9 = k9()
+    torch.cuda.synchronize()
+    if bool(bad8.any()) or bool(bad9.any()) or not torch.equal(r8, x) or not torch.equal(r9, x):
+        raise AssertionError("K8 or K9 at 384 x 16,384: the rows decoded differ from the residuals")
+    ms8, ms9 = cuda_ms(k8, 5, warmup=1), cuda_ms(k9, 5, warmup=1)
+    log("kernels", f"rice_encode_blocks / rice_decode_blocks B {B} C {C} L {L} "
+        f"({int(counts.sum()) * C} symbols, {int(sizes.sum())} payload bytes): K8's payloads "
+        f"decode back to the residuals, K9 on the host coder's stream too; K8 {ms8:.3f} ms, "
+        f"K9 {ms9:.3f} ms")
+    if prev is not None:
+        previous_vs_new(f"rice_encode_blocks B {B} L {L}",
+                        lambda: prev.rice_encode_blocks(x, row0, cnt, ini, C), k8,
+                        lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b)))
+        previous_vs_new(f"rice_decode_blocks B {B} L {L}",
+                        lambda: prev.rice_decode_blocks(words, o, W, cnt, ini, C, L), k9,
+                        lambda a, b: ce.decode_agrees(*a, *b, C)[0])
+
 
 # -- phase 3 -----------------------------------------------------------------
 

@@ -131,7 +131,7 @@ def cuda_library() -> ctypes.CDLL:
             "sla_lms_synth": [vp, vp, i, i, i, vp],
             "sla_longterm_synth": [vp, vp, vp, vp, i, i, i, vp],
             "sla_pipe_shared_bytes": [i],
-            "sla_rice_encode_blocks": [vp, i, vp, vp, vp, i, i, vp, vp, vp, i, vp],
+            "sla_rice_encode_blocks": [vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, i, vp],
             "sla_rice_decode_blocks": [vp, i64, vp, i, vp, vp, i, i, i, vp, vp, vp],
         }
         for name, argtypes in sigs.items():
@@ -165,7 +165,7 @@ def host_library() -> ctypes.CDLL:
             "sla_host_lattice_synth": [vp, vp, vp, i, i, i, i, i, i],
             "sla_host_lms_synth": [vp, vp, i, i, i, i, i],
             "sla_host_longterm_synth": [vp, vp, vp, vp, i, i, i, i, i],
-            "sla_host_rice_encode_blocks": [vp, i, vp, vp, vp, i, i, vp, vp, vp, i, i],
+            "sla_host_rice_encode_blocks": [vp, i, vp, vp, vp, i, i, vp, vp, vp, vp, i, i],
             "sla_host_rice_decode_blocks": [vp, i64, vp, i, vp, vp, i, i, i, vp, vp, i],
         }
         for name, argtypes in sigs.items():

@@ -2,8 +2,9 @@
 plain PyTorch version.
 
     rice_encode_blocks  K8  COMPRESSDATA payloads of a filter chunk's
-                            recursive-Rice blocks: a count pass, an
-                            exclusive sum on the card, an emit pass
+                            recursive-Rice blocks: a chain pass (the
+                            parameters, a record a symbol, the sizes),
+                            an exclusive sum on the card, an emit pass
     rice_decode_blocks  K9  a synthesis group's payloads, read from the
                             whole stream, into (blocks x channels, n_max)
                             rows, with the reference's `bad` flag
@@ -37,6 +38,9 @@ from .. import rice_device
 from .build import cuda_library
 
 MAX_CHANNELS = 8  # entropy.cuh kMaxChannels
+# K9's cursor is a 32-bit bit count from a block's first word, and a symbol
+# reads at most 103 bits (entropy.cuh kMaxSymbolBits)
+MAX_DECODE_SYMBOLS = (2**31 - 1 - 31) // 103
 
 launches = {"rice_encode_blocks": 0, "rice_decode_blocks": 0}
 
@@ -176,17 +180,21 @@ def rice_encode_blocks(rows, row0, counts, init, C: int):
         cnt = counts.to(torch.int32).contiguous()
         ini = init.to(torch.int64).contiguous()
         sizes = torch.empty((B,), dtype=torch.int64, device=dev)
+        # the chain pass's record of every symbol (uint16 bit patterns), read
+        # by the emit pass
+        recs = torch.empty((max(B * L * C, 1),), dtype=torch.int16, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         lib = cuda_library()
         args = (x.data_ptr(), L, r0.data_ptr(), cnt.data_ptr(), ini.data_ptr(), B, C)
-        _launch_check(lib.sla_rice_encode_blocks(*args, None, None, sizes.data_ptr(), 0, stream),
+        _launch_check(lib.sla_rice_encode_blocks(*args, None, None, sizes.data_ptr(),
+                                                 recs.data_ptr(), 0, stream),
                       "sla_rice_encode_blocks (count)")
         padded = (sizes + 3) & ~3
         offsets = torch.cumsum(padded, 0) - padded
         total = int(padded.sum())  # the one small copy to the host
         payload = torch.empty((max(total, 4),), dtype=torch.uint8, device=dev)
         _launch_check(lib.sla_rice_encode_blocks(*args, offsets.data_ptr(), payload.data_ptr(),
-                                                 sizes.data_ptr(), 1, stream),
+                                                 sizes.data_ptr(), recs.data_ptr(), 1, stream),
                       "sla_rice_encode_blocks (emit)")
         launches["rice_encode_blocks"] += 1
         return payload[:total], offsets, sizes
@@ -220,6 +228,9 @@ def rice_decode_blocks(stream, bit_offsets, W: int, counts, init, C: int, n_max:
         return rice_decode_blocks_plain(stream, bit_offsets, W, counts, init, C, n_max)
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    if n_max * C > MAX_DECODE_SYMBOLS:
+        raise ValueError(f"{n_max} samples x {C} channels a block exceed the kernel's 32-bit "
+                         f"cursor ({MAX_DECODE_SYMBOLS} symbols)")
     with torch.cuda.device(dev):
         offs = bit_offsets.to(torch.int64).contiguous()
         cnt = counts.to(torch.int32).contiguous()

@@ -241,8 +241,12 @@ def host_lib(dev):
 
 
 # (blocks, channels, samples): one block, a few with a short last one, a
-# decode group's 1,066 blocks, eight channels, mono
-ENTROPY_SHAPES = [(1, 2, 700), (3, 2, 1500), (1066, 2, 300), (5, 8, 400), (4, 1, 2000)]
+# decode group's 1,066 blocks, eight channels, mono; 31 and 33 blocks (a
+# chain warp's 16 stereo blocks and 32 mono ones, and one more) and about
+# 1,000, at one, two and eight channels
+ENTROPY_SHAPES = [(1, 2, 700), (3, 2, 1500), (1066, 2, 300), (5, 8, 400), (4, 1, 2000),
+                  (1, 1, 900), (1, 8, 300), (31, 1, 500), (31, 2, 400), (31, 8, 150),
+                  (33, 1, 500), (33, 2, 400), (33, 8, 150), (1000, 1, 200), (1000, 8, 64)]
 
 
 @pytest.mark.parametrize("B,C,L", ENTROPY_SHAPES)
@@ -305,6 +309,78 @@ def test_rice_decode_blocks_on_card(dev, host_lib, B, C, L):
             assert np.array_equal(k_rows.cpu().numpy(), rows)
         elif data is not stream:
             assert bool(k_bad[:2].all())
+    # rows longer than every count: zeros past them, as the plain version
+    (k_rows, k_bad), (p_rows, p_bad) = vd.decode_entropy_stream(
+        dev, stream, offs, bits, counts, inits, C, L + 45)
+    torch.cuda.synchronize()
+    assert torch.equal(k_rows, p_rows) and torch.equal(k_bad, p_bad) and not bool(k_bad.any())
+    assert np.array_equal(k_rows[:, :L].cpu().numpy(), rows) and not bool(k_rows[:, L:].any())
+
+
+@pytest.mark.parametrize("B,C,L", [(1, 2, 700), (3, 2, 1500), (33, 2, 400), (31, 8, 150),
+                                   (5, 1, 900), (3, 2, 97)])
+def test_rice_decode_flags_at_ring_boundaries_on_card(dev, host_lib, B, C, L):
+    """K9 with a flag planted at the first symbol of a ring refill and at the
+    last one before it, and with a symbol ending exactly at the cursor limit
+    and one bit past it: the planted flags, the rows stopped at the same
+    symbol with zeros after it, equal to the g++ build's and the plain
+    version's rows."""
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.kernels import cuda_entropy
+    from sla_tpu_torch.tools import verify_device as vd
+
+    from .test_torch_hostbuild import host_rice_decode, limit_flag_cases, ring_flag_cases
+
+    rows, counts, inits = vd.entropy_blocks(B * 13 + C + L, B, C, L, 3000.0)
+    stream, offs, bits = vd.entropy_stream(B + C + 2, rows, counts, inits, C)
+    ini = inits.astype(np.int64)
+    W = rice_device.window_width(offs, bits)
+    cases = [(name, data, offs, W, counts, flags, want)
+             for name, data, flags, want in ring_flag_cases(stream, offs, rows, counts, inits, C)]
+    cases += [(name, data, o, Wl, counts[:1], flags, want)
+              for name, data, o, Wl, flags, want in limit_flag_cases(rows, counts, inits, C)]
+    for name, data, o, Wc, cnt, flags, want in cases:
+        words = rice_device.upload_stream(data, dev)
+        args = (torch.from_numpy(o).to(dev), Wc, torch.from_numpy(cnt).to(dev),
+                torch.from_numpy(ini[: len(cnt)]).to(dev), C, L)
+        k_rows, k_bad = cuda_entropy.rice_decode_blocks(words, *args)
+        torch.cuda.synchronize()
+        p_rows, p_bad = cuda_entropy.rice_decode_blocks_plain(words, *args)
+        h_rows, h_bad = host_rice_decode(host_lib, words.cpu().numpy(), o, Wc, cnt,
+                                         ini[: len(cnt)], C, L)
+        assert np.array_equal(k_bad.cpu().numpy(), flags), name
+        assert torch.equal(k_rows, p_rows) and torch.equal(k_bad, p_bad), name
+        assert np.array_equal(k_rows.cpu().numpy(), want) and np.array_equal(h_rows, want), name
+
+
+@pytest.mark.parametrize("C", [1, 2, 8])
+def test_rice_longest_symbols_on_card(dev, host_lib, C):
+    """A block of the code's longest symbols (80-bit escapes): K8's payload
+    is the host coder's, and K9 decodes it at every bit alignment to the
+    residuals, unflagged, as the g++ build does."""
+    from sla_tpu_torch import rice_device
+    from sla_tpu_torch.kernels import cuda_entropy
+
+    from .test_torch_hostbuild import at_alignment, host_rice_decode, longest_block
+
+    n = 300
+    rows, inits, payload = longest_block(C, n)
+    args = [torch.from_numpy(a).to(dev) for a in (rows, np.zeros(1, np.int32),
+                                                   np.array([n], np.int32), inits)]
+    got, _, sizes = cuda_entropy.rice_encode_blocks(*args, C)
+    torch.cuda.synchronize()
+    assert got.cpu().numpy()[: int(sizes[0])].tobytes() == payload
+    cnt = np.array([n], dtype=np.int32)
+    for at in range(32):
+        o = np.array([at], dtype=np.int64)
+        W = rice_device.window_width(o, np.array([8 * len(payload)]))
+        words = rice_device.upload_stream(at_alignment(payload, at), dev)
+        k_rows, k_bad = cuda_entropy.rice_decode_blocks(words, torch.from_numpy(o).to(dev), W,
+                                                        args[2], args[3], C, n)
+        torch.cuda.synchronize()
+        h_rows, h_bad = host_rice_decode(host_lib, words.cpu().numpy(), o, W, cnt, inits, C, n)
+        assert not bool(k_bad.any()) and not h_bad.any(), at
+        assert np.array_equal(k_rows.cpu().numpy(), rows) and np.array_equal(h_rows, rows), at
 
 
 def test_entropy_kernels_count_their_launches(dev):

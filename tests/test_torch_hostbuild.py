@@ -340,7 +340,7 @@ def test_lattice_synth_lanes_match_plain(lib, p, emphasis, fixed, reverse):
 
 
 def host_rice_encode(lib, rows, row0, counts, inits, C, fixed=1):
-    """K8's body through the g++ build: the count pass, the 4-byte aligned
+    """K8's schedule through the g++ build: the chain pass, the 4-byte aligned
     exclusive sum, the emit pass. Returns (payload, offsets, sizes)."""
     rows = np.ascontiguousarray(rows, dtype=np.int32)
     r0 = np.ascontiguousarray(row0, dtype=np.int32)
@@ -348,13 +348,15 @@ def host_rice_encode(lib, rows, row0, counts, inits, C, fixed=1):
     ini = np.ascontiguousarray(inits, dtype=np.int64)
     B, L = len(cnt), rows.shape[1]
     sizes = np.empty(B, dtype=np.int64)
+    recs = np.empty(max(B * L * C, 1), dtype=np.uint16)
     args = (rows.ctypes.data, L, r0.ctypes.data, cnt.ctypes.data, ini.ctypes.data, B, C)
-    lib.sla_host_rice_encode_blocks(*args, None, None, sizes.ctypes.data, 0, fixed)
+    lib.sla_host_rice_encode_blocks(*args, None, None, sizes.ctypes.data, recs.ctypes.data, 0,
+                                    fixed)
     padded = (sizes + 3) & ~3
     offsets = np.cumsum(padded) - padded
     out = np.zeros(max(int(padded.sum()), 4), dtype=np.uint8)
     lib.sla_host_rice_encode_blocks(*args, offsets.ctypes.data, out.ctypes.data,
-                                    sizes.ctypes.data, 1, fixed)
+                                    sizes.ctypes.data, recs.ctypes.data, 1, fixed)
     return out[: int(padded.sum())], offsets, sizes
 
 
@@ -375,8 +377,125 @@ def host_rice_decode(lib, stream, offsets, W, counts, inits, C, n_max, fixed=1):
 
 
 # (blocks, channels, samples): one block, a short last block among a few,
-# eight channels, mono
-ENTROPY_CASES = [(1, 2, 700), (3, 2, 1500), (4, 8, 300), (5, 1, 900)]
+# eight channels, mono; blocks longer than many of K9's 32-word ring
+# refills and K8's 1,024-symbol emit tiles; counts that are no multiple of
+# K8's 64-sample chain tile or K9's 32-sample output tile (97, and the last
+# block's 73); three channels, which leave two of a chain warp's lanes idle
+ENTROPY_CASES = [(1, 2, 700), (3, 2, 1500), (4, 8, 300), (5, 1, 900), (2, 2, 2600),
+                 (3, 2, 97), (3, 3, 200)]
+
+
+def symbol_ends(rows, counts, inits, C, b):
+    """The bit ends of block b's symbols in stream order, from its payload's
+    first bit (the plain parts scan's lengths)."""
+    from sla_tpu_torch import rice_device
+
+    n = int(counts[b])
+    lengths = rice_device.encode_parts64(torch.from_numpy(rows[b * C : (b + 1) * C, :n]),
+                                         torch.from_numpy(inits[b].astype(np.int64)))[1]
+    return torch.cumsum(lengths.sum(-1).reshape(-1).to(torch.int64), 0).numpy()
+
+
+def plant_run(stream: bytes, bit: int) -> bytes:
+    """The stream with 17 zeros from `bit` on: a unary run past 16 there."""
+    bits = np.unpackbits(np.frombuffer(stream, dtype=np.uint8)).copy()
+    bits[bit : bit + 17] = 0
+    return np.packbits(bits).tobytes()
+
+
+def truncated(rows, C, b, k):
+    """The rows with block b's symbols from stream index k on read as 0."""
+    out = rows.copy()
+    blk = out[b * C : (b + 1) * C]
+    s, c = divmod(k, C)
+    blk[c:, s] = 0
+    blk[:, s + 1 :] = 0
+    return out
+
+
+def ring_flag_cases(stream, offs, rows, counts, inits, C):
+    """Two streams with a flag planted in block 0 and in the last block:
+    at the first symbol that starts in one of K9's 32-word ring refills
+    (words 32 m onward from the block's first word), then at the last
+    symbol before it. Yields (name, stream, flags, expected rows)."""
+    B = len(counts)
+    for name, which in (("first of a ring refill", 0), ("last before a ring refill", -1)):
+        data, want = stream, rows
+        flags = np.zeros(B, dtype=bool)
+        for b in sorted({0, B - 1}):
+            ends = symbol_ends(rows, counts, inits, C, b)
+            rel = offs[b] % 32 + np.concatenate([[0], ends[:-1]])  # from the first word
+            m = max(1, min(3, int(rel.max()) // 1024))
+            k = int(np.searchsorted(rel, 1024 * m)) + which
+            data = plant_run(data, int(offs[b]) + int(rel[k]) - int(offs[b] % 32))
+            want = truncated(want, C, b, k)
+            flags[b] = True
+        yield name, data, flags, want
+
+
+def limit_flag_cases(rows, counts, inits, C):
+    """Block 0 alone, placed so that a symbol ends exactly at the cursor
+    limit W * 32 (it passes and the next one flags), then one bit later
+    (it flags). Yields (name, stream, offsets, W, flags, expected rows)."""
+    ends = symbol_ends(rows, counts, inits, C, 0)
+    payload = native_payload(rows, counts, inits, C, 0)
+    for W in range(int(ends[-1]) // 64, 0, -1):
+        hits = np.flatnonzero((W * 32 - ends[:-1] >= 0) & (W * 32 - ends[:-1] <= 30))
+        if hits.size:
+            break
+    k = int(hits[-1])
+    o = W * 32 - int(ends[k])
+    block0 = rows[:C]
+    for name, at, flag_at in (("a symbol ending at the limit", o, k + 1),
+                              ("a symbol ending one bit past it", o + 1, k)):
+        bits = np.concatenate([np.ones(at, dtype=np.uint8),
+                               np.unpackbits(np.frombuffer(payload, dtype=np.uint8))])
+        yield (name, np.packbits(bits).tobytes(), np.array([at], dtype=np.int64), W,
+               np.array([True]), truncated(block0, C, 0, flag_at))
+
+
+def native_payload(rows, counts, inits, C, b):
+    from sla_tpu_torch import native
+
+    return native.put_data_array(rows[b * C : (b + 1) * C, : counts[b]], list(inits[b]))
+
+
+def longest_block(C, n):
+    """A block of the code's longest symbols: each residual's zigzag is k0 +
+    0xFF000000 for its symbol's k0, so the update terms wrap to 9 * (k0 <<
+    8) (stage 0) and 0 (stage 1), both Rice parameters fall from the initial
+    40 to 2^0 within 60 samples, and every symbol after that is an escape
+    with a gamma code of 32 digits, 80 bits. Returns (rows (C, n), inits
+    (1, C), payload (the host coder's))."""
+    M = 0xFFFFFFFF
+
+    def rice_bits(p):
+        return ((((p >> 1) + 128) >> 8) - 1 & M).bit_length() & 31
+
+    def update(p, code):
+        return (119 * p + (9 * (code << 8 & M) & M) + 64) >> 7 & M
+
+    rows = np.empty((C, n), dtype=np.int32)
+    bits = np.empty((C, n), dtype=np.int64)
+    for c in range(C):
+        pa = pb = 40 << 8
+        for s in range(n):
+            k0, b1 = 1 << rice_bits(pa), rice_bits(pb)
+            u = k0 + 0xFF000000
+            pa, pb = update(pa, u), update(pb, u - k0)
+            rows[c, s] = (u >> 1) ^ -(u & 1)
+            bits[c, s] = 16 + 2 * ((0xFF000000 >> b1) - 14).bit_length() + b1
+    assert (bits[:, 60:] == 80).all()
+    inits = np.full((1, C), 40, dtype=np.int64)
+    payload = native_payload(rows, [n], inits, C, 0)
+    assert len(payload) == (int(bits.sum()) + 7) // 8
+    return rows, inits, payload
+
+
+def at_alignment(payload: bytes, at: int) -> bytes:
+    """The payload after `at` one bits."""
+    bits = np.unpackbits(np.frombuffer(payload, dtype=np.uint8))
+    return np.packbits(np.concatenate([np.ones(at, dtype=np.uint8), bits])).tobytes()
 
 
 @pytest.mark.parametrize("fixed", [1, 0])
@@ -384,7 +503,8 @@ ENTROPY_CASES = [(1, 2, 700), (3, 2, 1500), (4, 8, 300), (5, 1, 900)]
 def test_rice_encode_body_matches_plain_and_host_coder(lib, B, C, L, fixed):
     """K8's body (count, then emit) gives the plain version's buffer byte for
     byte, and each block's payload is the host coder's (the compile-time
-    channel count for C 1 and 2 with fixed 1, the run-time one otherwise)."""
+    channel count for C 1 and 2 with fixed 1, the run-time one otherwise),
+    a block of the longest symbols too."""
     from sla_tpu_torch import native
     from sla_tpu_torch.kernels import cuda_entropy
     from sla_tpu_torch.tools.verify_device import entropy_blocks
@@ -402,6 +522,11 @@ def test_rice_encode_body_matches_plain_and_host_coder(lib, B, C, L, fixed):
         block = rows[b * C : (b + 1) * C, : counts[b]]
         assert (payload[offsets[b] : offsets[b] + sizes[b]].tobytes()
                 == native.put_data_array(block, list(inits[b])))
+    # a block of the longest symbols, each ORed over three words
+    n = min(L, 160)
+    rows1, inits1, payload1 = longest_block(C, n)
+    got1 = host_rice_encode(lib, rows1, [0], [n], inits1, C, fixed)
+    assert got1[0][: got1[2][0]].tobytes() == payload1
 
 
 @pytest.mark.parametrize("fixed", [1, 0])
@@ -409,13 +534,53 @@ def test_rice_encode_body_matches_plain_and_host_coder(lib, B, C, L, fixed):
 def test_rice_decode_body_matches_plain(lib, B, C, L, fixed):
     """K9's body on payloads at every bit alignment gives the host coder's
     rows and no flag, as the plain version does; with the flag conditions
-    planted, the same flags and the same unflagged rows."""
+    planted, the same flags and the same unflagged rows; a block of the
+    longest symbols at every bit alignment."""
     from sla_tpu_torch import rice_device
     from sla_tpu_torch.kernels import cuda_entropy
     from sla_tpu_torch.tools import verify_device as vd
 
     rows, counts, inits = vd.entropy_blocks(B * 37 + C + L, B, C, L, 3000.0)
     stream, offs, bits = vd.entropy_stream(B + C, rows, counts, inits, C)
+    ini = inits.astype(np.int64)
+
+    def both(data, offsets, W, cnt, n_max):
+        words = rice_device.upload_stream(data, "cpu")
+        k = host_rice_decode(lib, words.numpy(), offsets, W, cnt, ini[: len(cnt)], C, n_max, fixed)
+        p = cuda_entropy.rice_decode_blocks_plain(
+            words, torch.from_numpy(offsets), W, torch.from_numpy(cnt),
+            torch.from_numpy(ini[: len(cnt)]), C, n_max)
+        return k, p
+
+    # flags planted at K9's ring refills and at the cursor limit: the same
+    # flags, stopping at the same symbol, zeros after it, as the plain version
+    W = rice_device.window_width(offs, bits)
+    for name, data, flags, want in ring_flag_cases(stream, offs, rows, counts, inits, C):
+        (k_rows, k_bad), (p_rows, p_bad) = both(data, offs, W, counts, L)
+        assert np.array_equal(k_bad, flags) and np.array_equal(p_bad.numpy(), flags), name
+        assert np.array_equal(k_rows, want) and np.array_equal(p_rows.numpy(), want), name
+    for name, data, o, Wl, flags, want in limit_flag_cases(rows, counts, inits, C):
+        (k_rows, k_bad), (p_rows, p_bad) = both(data, o, Wl, counts[:1], L)
+        assert np.array_equal(k_bad, flags) and np.array_equal(p_bad.numpy(), flags), name
+        assert np.array_equal(k_rows, want) and np.array_equal(p_rows.numpy(), want), name
+    # rows longer than every count: zeros past them
+    (k_rows, k_bad), _ = both(stream, offs, W, counts, L + 45)
+    assert not k_bad.any() and np.array_equal(k_rows[:, :L], rows) and not k_rows[:, L:].any()
+    # a block of the longest symbols at every bit alignment: a sample reads
+    # the most ring words past the cursor's word there
+    n = min(L, 160)
+    rows1, inits1, payload1 = longest_block(C, n)
+    cnt1 = np.array([n], dtype=np.int32)
+    for at in range(32):
+        o = np.array([at], dtype=np.int64)
+        W1 = rice_device.window_width(o, np.array([8 * len(payload1)]))
+        words = rice_device.upload_stream(at_alignment(payload1, at), "cpu").numpy()
+        k_rows, k_bad = host_rice_decode(lib, words, o, W1, cnt1, inits1, C, n, fixed)
+        assert not k_bad.any() and np.array_equal(k_rows, rows1), at
+    p_rows, p_bad = cuda_entropy.rice_decode_blocks_plain(
+        torch.from_numpy(words), torch.from_numpy(o), W1, torch.from_numpy(cnt1),
+        torch.from_numpy(inits1), C, n)
+    assert not bool(p_bad.any()) and np.array_equal(p_rows.numpy(), rows1)
     # a cursor past the window (512 words from the block's first word)
     # flags every payload longer than it and no payload well inside it
     window = 512 * 32
