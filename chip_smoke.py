@@ -51,7 +51,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and 2,048 rows, the verify twin's checks (the entropy kernels and the
    codec with on-card entropy on and off among them), and entry()'s forward
    step against the plain encode chain, with all seven filter launch counts
-   above 0.
+   above 0;
+5. entry points, on the card at preset 2, each part with the launch counts
+   set to 0 and its kernels required: (a) the CLI on phase 3's clip as a
+   WAV: `-e -V` writes phase 3's device stream (K1, K2, K8; K3, K9 for the
+   verify), `-d` (K3, K9), `-d -s` and `-d -w` give the exact PCM, and one
+   `python -m sla_tpu_torch -e` subprocess writes the same bytes; (b)
+   corpus mode, eight seeded WAVs (stereo 60, 45, 40, 35, 30, 25 s, mono 30
+   and 20 s: 22.9M row-samples, over the 16M 'auto' threshold) in one
+   `-e -b -f 8` batch (K1, K2, K8), each .sla equal to the host backend's,
+   and `-d -b` back to the exact PCM (K3, K9; each file is under the
+   threshold alone, so SLA_TPU_DEVICE_THRESHOLD sends it to the card);
+   (c) optimize_encode(effort=1) on 30 s, the card's result equal to the
+   CPU's; (d) SLA_TPU_DEBUG_ASSERTS=1: a 30-s device round trip through the
+   checked plain versions on CUDA tensors (no filter kernel) writes the
+   unchecked stream and decodes exactly, and a seeded LMS overflow on CUDA
+   tensors raises. One line of wall times beside the card's name and limit.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and the result. Imports neither jax nor
@@ -877,18 +892,27 @@ def round_trip(st, label: str, pcm, bits: int, rate: int, preset: int, detail: b
             f"wall, device busy {busy_ms:.1f} ms, idle share {100 * (1 - busy_ms / wall_ms):.1f} %; "
             "top five device operations: "
             + "; ".join(f"{name} {t:.2f} ms" for name, t in top))
-    return launches
+    return launches, blob
 
 
-def phase_slice() -> dict:
+CD_CLIP = dict(seconds=300, rate=44100, bits=16, seed=2026, f_lo=180, f_hi=900)
+
+
+def cd_clip():
+    c = CD_CLIP
+    return music(c["seconds"], c["rate"], c["bits"], c["seed"], c["f_lo"], c["f_hi"])
+
+
+def phase_slice() -> tuple[dict, bytes]:
+    """Returns the main path's launches and its device stream of the CD
+    clip (phase 5's CLI must write the same bytes)."""
     import sla_tpu_torch as st
 
-    cd = music(300, 44100, 16, seed=2026, f_lo=180, f_hi=900)
-    launches = round_trip(st, "5 min CD stereo 44.1 kHz/16", cd, 16, 44100, 2, detail=True)
-    del cd
+    launches, blob = round_trip(st, "5 min CD stereo 44.1 kHz/16", cd_clip(), 16, 44100, 2,
+                                detail=True)
     hi = music(60, 96000, 24, seed=2027, f_lo=400, f_hi=1800)
     round_trip(st, "1 min stereo 96 kHz/24", hi, 24, 96000, 4, detail=False)
-    return launches
+    return launches, blob
 
 
 # -- phase 4 -----------------------------------------------------------------
@@ -931,15 +955,238 @@ def phase_known_parameters() -> dict:
     return {**launches, **ce.launches}
 
 
+# -- phase 5 -----------------------------------------------------------------
+
+# the corpus of phase 5 (b): (channels, seconds) at 44.1 kHz / 16 bit
+CORPUS = ((2, 60), (2, 45), (2, 40), (2, 35), (2, 30), (2, 25), (1, 30), (1, 20))
+ENCODE_KERNELS = ("lattice_predict", "stage2_predict", "rice_encode_blocks")
+DECODE_KERNELS = ("synth_cascade", "rice_decode_blocks")
+
+
+class Launches:
+    """Each part of phase 5 runs with the wrappers' counts set to 0 and
+    must launch the kernels it names; the parts' counts add up here."""
+
+    def __init__(self):
+        from sla_tpu_torch.kernels import cuda_entropy as ce
+        from sla_tpu_torch.kernels import cuda_filters as cf
+
+        self._mods = (cf, ce)
+        self.total = {name: 0 for name in KERNELS}
+
+    def part(self, label: str, fn, need=()):
+        for mod in self._mods:
+            mod.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        got = {k: v for mod in self._mods for k, v in mod.launches.items()}
+        missing = [k for k in need if got[k] == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels of the path never launched: {missing}; {got}")
+        for k, v in got.items():
+            self.total[k] += v
+        return out, dt, {k: v for k, v in got.items() if v}
+
+
+class FilterChunks:
+    """The encoders' filter chunks while installed: (row-samples, backend)
+    each, as `Encoder._select_backend` decides them."""
+
+    def __init__(self):
+        from sla_tpu_torch.encoder import Encoder
+
+        self.seen: list[tuple[int, str]] = []
+        self._cls, self._real = Encoder, Encoder._select_backend
+        real, seen = self._real, self.seen
+
+        def spy(enc, row_samples):
+            backend = real(enc, row_samples)
+            seen.append((row_samples, backend))
+            return backend
+
+        Encoder._select_backend = spy
+
+    def close(self) -> str:
+        self._cls._select_backend = self._real
+        return ", ".join(f"{n} on {b}" for n, b in self.seen)
+
+
+def same_pcm(label: str, path, want) -> None:
+    from sla_tpu_torch import wavio
+
+    got = wavio.read_wav(str(path)).data
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"{label}: the decoded PCM differs from the input")
+
+
+def phase_entry_points(env: dict, device_blob: bytes) -> dict:
+    """The port's entry points on the card at preset 2, CD stereo: the CLI
+    (encode with -V, decode, streaming decode, window decode, and one
+    `python -m sla_tpu_torch`), corpus mode with an 8-file `-f 8` batch,
+    optimize_encode against the same call on the CPU, and the assert mode
+    (SLA_TPU_DEBUG_ASSERTS) round trip and trap."""
+    import tempfile
+
+    import sla_tpu_torch as st
+    from sla_tpu_torch import cli, debug, wavio
+    from sla_tpu_torch.kernels import lms
+
+    runs = Launches()
+    times: dict[str, float] = {}
+    notes: list[str] = []
+    with tempfile.TemporaryDirectory(prefix="sla_smoke_") as tmp:
+        d = pathlib.Path(tmp)
+        # (a) the CLI on phase 3's clip
+        cd = cd_clip()
+        wav, sla = d / "clip.wav", d / "clip.sla"
+        wavio.write_wav(str(wav), wavio.WavFile(2, 44100, 16, cd))
+        argv = ["sla_tpu_torch", "-e", "-q", "-m", "2"]
+        spy = FilterChunks()
+        try:
+            rc, times["cli encode"], got = runs.part(
+                "cli -e -V", lambda: cli.main(argv + ["-V", str(wav), str(sla)]),
+                ENCODE_KERNELS + DECODE_KERNELS)
+        finally:
+            chunks = spy.close()
+        if rc != 0 or sla.read_bytes() != device_blob:
+            raise AssertionError("cli -e: the stream differs from phase 3's device stream")
+        notes.append(f"cli -e -V {got}, filter chunks (row-samples) {chunks}")
+        rc, times["cli decode"], got = runs.part(
+            "cli -d", lambda: cli.main(["sla_tpu_torch", "-d", "-q", str(sla), str(d / "d.wav")]),
+            DECODE_KERNELS)
+        if rc != 0:
+            raise AssertionError("cli -d failed")
+        same_pcm("cli -d", d / "d.wav", cd)
+        notes.append(f"cli -d {got}")
+        rc, times["cli -d -s"], _ = runs.part(
+            "cli -d -s",
+            lambda: cli.main(["sla_tpu_torch", "-d", "-s", "-q", str(sla), str(d / "s.wav")]))
+        if rc != 0:
+            raise AssertionError("cli -d -s failed")
+        same_pcm("cli -d -s", d / "s.wav", cd)
+        start, count = 5_000_000, 441_000
+        rc, times["cli -d -w"], _ = runs.part(
+            "cli -d -w", lambda: cli.main(["sla_tpu_torch", "-d", "-w", f"{start}:{count}", "-q",
+                                           str(sla), str(d / "w.wav")]))
+        if rc != 0:
+            raise AssertionError("cli -d -w failed")
+        same_pcm("cli -d -w", d / "w.wav", cd[:, start : start + count])
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sla_tpu_torch", "-e", "-q", "-m", "2",
+                               str(wav), str(d / "m.sla")], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        times["python -m encode"] = time.perf_counter() - t0
+        if proc.returncode != 0 or (d / "m.sla").read_bytes() != device_blob:
+            raise AssertionError(f"python -m sla_tpu_torch -e: {proc.returncode} "
+                                 f"{proc.stderr[-2000:]}")
+        del cd
+        # (b) corpus mode: eight files, one -f 8 batch over the 'auto' threshold
+        in_dir, out_dir, dec_dir = d / "wavs", d / "slas", d / "dec"
+        in_dir.mkdir()
+        pcms = {}
+        for i, (ch, seconds) in enumerate(CORPUS):
+            pcm = music(seconds, 44100, 16, seed=3000 + i, f_lo=150, f_hi=1000)[:ch]
+            pcm = np.ascontiguousarray(pcm)
+            pcms[f"c{i}"] = pcm
+            wavio.write_wav(str(in_dir / f"c{i}.wav"), wavio.WavFile(ch, 44100, 16, pcm))
+        row_samples = sum(p.size for p in pcms.values())
+        spy = FilterChunks()
+        try:
+            rc, times["corpus encode"], got = runs.part(
+                "cli -e -b -f 8",
+                lambda: cli.main(argv + ["-b", "-f", "8", str(in_dir), str(out_dir)]),
+                ENCODE_KERNELS)
+        finally:
+            batch_chunks = spy.close()
+        if rc != 0:
+            raise AssertionError("cli -e -b -f 8 failed")
+        batch_launches = got
+        for name, pcm in pcms.items():
+            host = st.Encoder(st.EncoderConfig(backend="host"), device="cpu")
+            host.set_wave_format(st.WaveFormat(pcm.shape[0], 16, 44100))
+            host.set_encode_parameter(st.preset_parameter(2, pcm.shape[0]))
+            if (out_dir / f"{name}.sla").read_bytes() != host.encode_whole(pcm):
+                raise AssertionError(f"corpus: {name}.sla differs from the host backend's")
+        # decode_corpus decodes file by file, each under the 16M 'auto'
+        # threshold: the threshold knob sends them to the card
+        os.environ["SLA_TPU_DEVICE_THRESHOLD"] = "500000"
+        try:
+            rc, times["corpus decode"], got = runs.part(
+                "cli -d -b", lambda: cli.main(["sla_tpu_torch", "-d", "-b", "-q", str(out_dir),
+                                               str(dec_dir)]), DECODE_KERNELS)
+        finally:
+            del os.environ["SLA_TPU_DEVICE_THRESHOLD"]
+        if rc != 0:
+            raise AssertionError("cli -d -b failed")
+        for name, pcm in pcms.items():
+            same_pcm(f"corpus {name}", dec_dir / f"{name}.wav", pcm)
+        notes.append(f"corpus -d -b {got}")
+        del pcms
+    # (c) optimize_encode on the card and on the CPU
+    clip30 = music(30, 44100, 16, seed=4000, f_lo=180, f_hi=900)
+    (card_out, times["optimize card"], _) = runs.part(
+        "optimize", lambda: st.optimize_encode(clip30, st.WaveFormat(2, 16, 44100), effort=1))
+    t0 = time.perf_counter()
+    cpu_out = st.optimize_encode(clip30, st.WaveFormat(2, 16, 44100), effort=1, device="cpu")
+    times["optimize cpu"] = time.perf_counter() - t0
+    if card_out[0] != cpu_out[0] or str(card_out[1]) != str(cpu_out[1]):
+        raise AssertionError("optimize_encode: the card's result differs from the CPU's")
+    # (d) assert mode: the checked plain versions on CUDA tensors
+
+    def device_round_trip():
+        enc = st.Encoder(st.EncoderConfig(backend="device"))
+        enc.set_wave_format(st.WaveFormat(2, 16, 44100))
+        enc.set_encode_parameter(st.preset_parameter(2, 2))
+        blob = enc.encode_whole(clip30)
+        _, out = st.Decoder(st.DecoderConfig(backend="device")).decode_whole(blob)
+        return blob, out
+
+    (want, _), _, _ = runs.part("unchecked", device_round_trip, ENCODE_KERNELS + DECODE_KERNELS)
+    os.environ["SLA_TPU_DEBUG_ASSERTS"] = "1"
+    try:
+        (blob, out), times["assert round trip"], got = runs.part(
+            "assert mode", device_round_trip, ENTROPY_KERNELS)
+        if any(got.get(k) for k in SLICE_KERNELS):
+            raise AssertionError(f"assert mode launched a filter kernel: {got}")
+        if blob != want or not np.array_equal(out, clip30):
+            raise AssertionError("assert mode: the stream or the PCM differs")
+        dev = torch.device("cuda")
+        big = torch.full((1, 4), 2**30, dtype=torch.int32, device=dev)
+        zero = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+        state = lms.LmsState(big, zero, big, zero, torch.full((1,), 4, dtype=torch.int32,
+                                                              device=dev))
+        try:
+            lms.lms_predict(torch.full((1, 4), 2**20, dtype=torch.int32, device=dev), state, 4)
+        except debug.DebugAssertError as e:
+            if "LMS tap product overflows int32" not in str(e):
+                raise
+        else:
+            raise AssertionError("assert mode: the seeded LMS overflow did not raise")
+    finally:
+        del os.environ["SLA_TPU_DEBUG_ASSERTS"]
+    log("entry", f"{env['card']} | cli -e -V (K1, K2, K8, and K3, K9 for -V) equals phase 3's "
+        f"stream; -d, -d -s and -d -w {start}:{count} exact; python -m equal | corpus {len(CORPUS)} "
+        f"files, {row_samples} row-samples (auto threshold 16,000,000) in one -f 8 batch, "
+        f"each .sla equal to the host backend's, -d -b exact; the batch's filter chunks "
+        f"(row-samples) {batch_chunks}, launches {batch_launches} | optimize effort 1 on the card equals the CPU's | assert mode "
+        f"stream equal, PCM exact, LMS trap raised on CUDA tensors; " + "; ".join(notes))
+    log("entry", f"{env['card']} | wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return runs.total
+
+
 def main() -> int:
     env = phase_environment()
     timing = phase_kernels(env)
     timing.update(phase_entropy(env))
-    slice_launches = phase_slice()
+    slice_launches, device_blob = phase_slice()
     known_launches = phase_known_parameters()
+    entry_launches = phase_entry_points(env, device_blob)
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
-         "launches": slice_launches[name] + known_launches[name], **timing[name]}
+         "launches": slice_launches[name] + known_launches[name] + entry_launches[name],
+         **timing[name]}
         for name in KERNELS
     ]
     print(json.dumps({"kernels": record}))

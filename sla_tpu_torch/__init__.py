@@ -12,7 +12,12 @@ runs as CUDA kernels (`kernels/cuda_filters.py`) on a CUDA device and as
 their plain PyTorch versions on the CPU; so do the whole encode cascade for
 known parameters (`pipeline.encode_filters_fused`, `entry.entry()`) and the
 single stages the device tools (`tools/`) check. Streams are byte-identical
-to `sla_tpu`'s and decoded PCM is exact.
+to `sla_tpu`'s and decoded PCM is exact. The entry points are those of
+`sla_tpu`: the CLI (`python -m sla_tpu_torch`, `cli.main`), corpus mode
+(`corpus.py`, many files' blocks in one filter batch through
+`encoder.encode_whole_batch`), the streaming decoder (`streaming.py`, on
+the host as in `sla_tpu`) and the parameter search (`optimize_encode`).
+Each runs on the CUDA card unless the caller passes `device="cpu"`.
 
 This package imports torch and never jax.
 """
@@ -33,13 +38,30 @@ if not _os.environ.get("SLA_TPU_NO_MALLOPT"):
     except OSError:
         pass
 
-from .constants import ChannelProcessMethod, WindowFunctionType  # noqa: E402
+from .constants import (  # noqa: E402,F401
+    SLA_FORMAT_VERSION,
+    SLA_VERSION_STRING,
+    BlockDataType,
+    ChannelProcessMethod,
+    WindowFunctionType,
+)
+from .decoder import Decoder, DecoderConfig, SalvageSegment, StreamIndex  # noqa: E402,F401
+from .encoder import Encoder, EncoderConfig  # noqa: E402,F401
 from .errors import ApiResult, SLAError  # noqa: E402,F401
-from .format import EncodeParameter, WaveFormat  # noqa: E402
-from .encoder import EncoderConfig  # noqa: E402,F401
-from .decoder import DecoderConfig  # noqa: E402,F401
-from .encoder import Encoder  # noqa: E402,F401
-from .decoder import Decoder  # noqa: E402,F401
+from .streaming import (  # noqa: E402,F401
+    DataPacketQueue,
+    StreamingDecoder,
+    StreamingDecoderConfig,
+)
+from .format import (  # noqa: E402,F401
+    EncodeParameter,
+    HeaderInfo,
+    WaveFormat,
+    decode_header,
+    encode_header,
+)
+
+__version__ = SLA_VERSION_STRING
 
 # Encode presets 0..4, restated from sla_tpu/__init__.py (which imports jax);
 # tests hold them equal to sla_tpu.PRESETS. Reference: src/main.c:63-70.
@@ -51,6 +73,9 @@ PRESETS = (
     EncodeParameter(32, 3, 8, ChannelProcessMethod.STEREO_MS, WindowFunctionType.SIN, 16384),
 )
 DEFAULT_PRESET = 2
+
+
+from .optimize import optimize_encode  # noqa: E402,F401
 
 
 def preset_parameter(preset_no: int, num_channels: int) -> EncodeParameter:

@@ -248,7 +248,6 @@ def _fill_block_filter_rows(blk, bi: int, C: int, coef, pitch, ltm, lengths):
 
 class Decoder:
     def __init__(self, config: DecoderConfig | None = None, device=None):
-        pipeline.refuse_unported_env()
         self.config = config or DecoderConfig()
         self.device = resolve_device(device)
         self._wave_format: WaveFormat | None = None

@@ -25,7 +25,8 @@ encoder's torch device: the CUDA kernels K1 and K2 on a card, their plain
 versions on the CPU; entropy coding then runs there too, K8, unless
 EncoderConfig.device_entropy='off'), 'auto' (device for big batches when
 that device is a CUDA card, host otherwise). 'mesh' is not ported yet and
-raises, and so does `encode_whole_batch`.
+raises. `encode_whole_batch` puts many files' blocks through one filter
+batch.
 """
 
 from __future__ import annotations
@@ -132,7 +133,6 @@ def resolve_device(device) -> torch.device:
 
 class Encoder:
     def __init__(self, config: EncoderConfig | None = None, device=None):
-        pipeline.refuse_unported_env()
         self.config = config or EncoderConfig()
         self.device = resolve_device(device)
         self._wave_format: WaveFormat | None = None
@@ -1164,7 +1164,62 @@ class Encoder:
 def encode_whole_batch(
     jobs: list[tuple["WaveFormat", "EncodeParameter", np.ndarray]],
     config: EncoderConfig | None = None,
+    device=None,
 ) -> list[bytes]:
-    """Encode many files with ONE fused filter batch (sla_tpu's
-    encode_whole_batch): not ported yet."""
-    raise NotImplementedError("encode_whole_batch is not ported to sla_tpu_torch yet")
+    """Encode many files with ONE fused filter batch.
+
+    jobs: (wave_format, encode_param, pcm) per file. All encode parameters
+    must share the filter orders and max block size (one preset); channel
+    counts, rates, and depths may differ. Per-file planning/analysis and
+    container emission stay per file (streams are byte-identical to
+    per-file `encode_whole`), but every file's blocks go through the filter
+    + pitch stage as a single (rows, L) batch: the corpus-scale batch axis
+    the device backend parallelizes. `device` is every job's encoder
+    device, as in `Encoder` (None: the CUDA card)."""
+    if not jobs:
+        return []
+    config = config or EncoderConfig()
+    device = resolve_device(device)
+    encs: list[Encoder] = []
+    staged: list[tuple[int, list[_BlockPlan]]] = []
+    ref_ep = jobs[0][1]
+    for wf, ep, data in jobs:
+        if (
+            ep.parcor_order != ref_ep.parcor_order
+            or ep.longterm_order != ref_ep.longterm_order
+            or ep.lms_order_per_filter != ref_ep.lms_order_per_filter
+            or ep.max_num_block_samples != ref_ep.max_num_block_samples
+        ):
+            raise SLAError(
+                ApiResult.INVALID_ARGUMENT,
+                "batched encode requires one preset's filter orders across jobs",
+            )
+        enc = Encoder(config, device=device)
+        enc.set_wave_format(wf)
+        enc.set_encode_parameter(ep)
+        encs.append(enc)
+        staged.append(enc._stage_encode(data))
+    groups = [
+        (
+            enc._wave_format.num_channels,
+            [pl for pl in plans if pl.block_type == BlockDataType.COMPRESSDATA],
+        )
+        for enc, (_, plans) in zip(encs, staged)
+    ]
+    # the batch bypasses _run_filters, which resets the mode per run; the
+    # attach step sets it when K8 coded this batch's payloads
+    encs[0]._device_entropy_active = False
+    encs[0]._run_filter_groups(groups)
+    # the filter run (and a possible device-entropy attach) happened on
+    # encs[0]; every job's finalize must observe the same mode so attached
+    # parts are consumed instead of re-coded by the native path
+    for enc in encs[1:]:
+        enc._device_entropy_active = encs[0]._device_entropy_active
+    blobs = [
+        enc._finalize_encode(num_samples, plans)
+        for enc, (num_samples, plans) in zip(encs, staged)
+    ]
+    # config.verify applies to the fused path too, as encode_whole runs it
+    for enc, blob, (_, _, data) in zip(encs, blobs, jobs):
+        enc._maybe_verify(blob, data)
+    return blobs

@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import debug
+
 
 def _qmul_fn(device):
     """v -> (c*v + 16384) >> 15 in wrapping int32, the C expression, with
@@ -34,6 +36,17 @@ def _qmul_fn(device):
     half = torch.tensor(1 << 14, dtype=torch.int32, device=device)
     q = torch.tensor(15, dtype=torch.int32, device=device)
     return lambda c, v: torch.addcmul(half, c, v) >> q
+
+
+def _check_qmul(checks, c: torch.Tensor, v: torch.Tensor, what: str) -> None:
+    """SLA_TPU_DEBUG_ASSERTS: the quantized coefficient must be a true Q15
+    value and the rounded stage product must fit int32 (the lattice analog
+    of SLAPredictor.c:1265-1271; sla_tpu/kernels/lattice.py _check_qmul)."""
+    q = (c.to(torch.int64) * v.to(torch.int64) + (1 << 14)) >> 15
+    checks.check(
+        torch.all(c.abs() <= (1 << 15)) & debug.fits_int32(q),
+        f"lattice {what} stage product overflows int32",
+    )
 
 
 def _state_buffers(backward: torch.Tensor, p: int):
@@ -62,16 +75,23 @@ def lattice_predict(
         return data, backward
     qmul = _qmul_fn(data.device)
     bufs, views = _state_buffers(backward, p)
+    checks = debug.Checks() if debug.asserts_enabled() else None
     sums = []  # cumsum(m)[p] per sample: residual = x - sum
     for n, x in enumerate(data.t().unsqueeze(2).unbind(0)):  # x: (B, 1)
         b_lo = views[n % 2][0]
         _, b0, b_hi = views[(n + 1) % 2]
+        if checks is not None:
+            _check_qmul(checks, c, b_lo, "predict")
         m = qmul(c, b_lo)
         cs = torch.cumsum(m, dim=1, dtype=torch.int32)
         f_prev = x - cs + m  # f[0..p-1]
+        if checks is not None:
+            _check_qmul(checks, c, f_prev, "predict-update")
         torch.sub(b_lo, qmul(c, f_prev), out=b_hi)
         b0.copy_(x)
         sums.append(cs[:, -1])
+    if checks is not None:
+        checks.raise_first()
     return data - torch.stack(sums, dim=1), bufs[N % 2]
 
 
@@ -92,17 +112,24 @@ def lattice_synthesize(
         return residual, backward
     qmul = _qmul_fn(residual.device)
     bufs, views = _state_buffers(backward, p)
+    checks = debug.Checks() if debug.asserts_enabled() else None
     outs = []
     for n, r in enumerate(residual.t().unsqueeze(2).unbind(0)):  # r: (B, 1)
         b_lo = views[n % 2][0]
         _, b0, b_hi = views[(n + 1) % 2]
+        if checks is not None:
+            _check_qmul(checks, c, b_lo, "synth")
         m = qmul(c, b_lo)
         cs = torch.cumsum(m, dim=1, dtype=torch.int32)
         out = r + cs[:, -1:]  # all p stages applied
         f = out - cs + m  # f after stages p..k, k = 1..p
+        if checks is not None:
+            _check_qmul(checks, c, f, "synth-update")
         torch.sub(b_lo, qmul(c, f), out=b_hi)
         b0.copy_(out)
         outs.append(out)
+    if checks is not None:
+        checks.raise_first()
     return torch.cat(outs, dim=1), bufs[N % 2]
 
 

@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import debug
+
 
 class LmsState(NamedTuple):
     fir_coef: torch.Tensor  # (B, M) int32
@@ -62,9 +64,17 @@ def _lms_loop(data: torch.Tensor, state: LmsState, num_coef: int, synthesize: bo
     w = torch.stack([fc.flip(1), ic.flip(1)], dim=1)  # (B, 2, M)
     # samples in which some row is still warming up
     n_warm = min(N, max(0, int((M - t.to(torch.int64)).max())))
+    # SLA_TPU_DEBUG_ASSERTS: the reference's per-tap overflow asserts
+    # (SLAPredictor.c:1265-1271): each (coef * buf) >> 10 must fit int32
+    checks = debug.Checks() if debug.asserts_enabled() else None
     outs = []
     for n, x in enumerate(data.t().unbind(0)):
         win = hist[:, :, n : n + M]
+        if checks is not None:
+            checks.check(
+                debug.fits_int32((w.to(torch.int64) * win.to(torch.int64)) >> 10),
+                "LMS tap product overflows int32",
+            )
         pred = (torch.sum(w * win, dim=(1, 2), dtype=torch.int32) + c512) >> c10
         if synthesize:
             out = x + pred
@@ -84,6 +94,8 @@ def _lms_loop(data: torch.Tensor, state: LmsState, num_coef: int, synthesize: bo
             hist[:, 0, M + n] = sample
         hist[:, 1, M + n] = ins
         outs.append(out)
+    if checks is not None:
+        checks.raise_first()
     new_state = LmsState(
         w[:, 0].flip(1), w[:, 1].flip(1),
         hist[:, 0, N:].flip(1), hist[:, 1, N:].flip(1), t + N,

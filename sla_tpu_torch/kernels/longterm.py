@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import debug
 from ..constants import LONGTERM_MAX_PERIOD
 
 MAX_DELAY = LONGTERM_MAX_PERIOD + 2  # pitch <= 256, taps <= 5 -> delay <= 258
@@ -126,15 +127,24 @@ def longterm_synthesize_q15(
     n_gate = min(N, int(start.max()))
     half = torch.tensor(1 << 14, dtype=torch.int64, device=dev)
     shift = torch.tensor(15, dtype=torch.int64, device=dev)
+    # SLA_TPU_DEBUG_ASSERTS: the reference computes the prediction in int64
+    # and casts it to int32 (SLAPredictor.c:1083-1087); the cast must keep
+    # the value (sla_tpu/kernels/longterm.py)
+    checks = debug.Checks() if debug.asserts_enabled() else None
     cols = []
     for n, r in enumerate(residual.t().unbind(0)):
         window = buf[:, n : n + D]
-        pred = ((torch.sum(q * torch.gather(window, 1, pos), dim=1) + half) >> shift).to(torch.int32)
+        pred64 = (torch.sum(q * torch.gather(window, 1, pos), dim=1) + half) >> shift
+        if checks is not None:
+            checks.check(debug.fits_int32(pred64), "long-term prediction overflows int32")
+        pred = pred64.to(torch.int32)
         if n < n_gate:
             pred = torch.where(n >= start, pred, 0)
         out = r + pred
         buf[:, D + n] = out
         cols.append(out)
+    if checks is not None:
+        checks.raise_first()
     new_hist = buf[:, N:].to(torch.int32)
     return torch.stack(cols, dim=1), (new_hist, processed + N)
 

@@ -39,11 +39,45 @@ _lib: ctypes.CDLL | None = None
 _load_failed = False
 _load_lock = threading.Lock()  # one build/load per process
 
+# SLA_TPU_SANITIZE selects an ASan + UBSan instrumented build, under its own
+# name, so the normal library's build is untouched. The instrumented library
+# only loads when libasan is preloaded before Python starts; the fp flags
+# stay identical, so its streams are byte-identical too.
+# -fno-sanitize-recover: any finding aborts loudly (-fwrapv already makes
+# signed wrap defined, so UBSan does not flag the format's int32 wrapping).
+SANITIZE_FLAGS = ["-fsanitize=address,undefined", "-fno-sanitize-recover=all",
+                  "-fno-omit-frame-pointer", "-g"]
+# SLA_TPU_NATIVE_DEBUG selects a -DSLA_TPU_DEBUG build whose cascades carry
+# the reference's SLA_Assert-equivalent invariant checks (LMS tap products,
+# lattice stage products, long-term prediction range, Levinson e>=0 and
+# |gamma|<1), compiled out of the production library exactly like NDEBUG.
+DEBUG_FLAGS = ["-DSLA_TPU_DEBUG"]
+
+
+def _sanitize() -> bool:
+    return bool(os.environ.get("SLA_TPU_SANITIZE"))
+
+
+def build_command() -> tuple[str, list[str]]:
+    """(library name, g++ command) of the variant the environment selects:
+    the sanitized build, else the debug build, else the production one.
+    Each variant builds under its own name and key in build/sla_tpu_torch/."""
+    cmd = ["g++"] + GXX_FLAGS
+    if _sanitize():
+        return "sla_native_san", cmd + SANITIZE_FLAGS + (
+            DEBUG_FLAGS if os.environ.get("SLA_TPU_NATIVE_DEBUG") else [])
+    if os.environ.get("SLA_TPU_NATIVE_DEBUG"):
+        return "sla_native_dbg", cmd + DEBUG_FLAGS
+    return "sla_native", cmd
+
 
 def _build() -> pathlib.Path | None:
-    """The built library's path, or None when g++ is missing or fails."""
+    """The built library's path, or None when g++ is missing or fails. A
+    failed sanitized build raises: the sanitizer run must never go on with
+    no native code under ASan."""
     from ..kernels.build import build_library
 
+    name, cmd = build_command()
     try:
         # what -march=native means on this CPU: a library built for one
         # machine is never loaded on another
@@ -51,8 +85,13 @@ def _build() -> pathlib.Path | None:
             ["g++", "-march=native", "-Q", "--help=target"],
             capture_output=True, text=True, check=True,
         ).stdout
-        return build_library("sla_native", ["g++"] + GXX_FLAGS, [_SRC], key=target)
-    except (OSError, RuntimeError, subprocess.CalledProcessError):
+        return build_library(name, cmd, [_SRC], key=target)
+    except (OSError, RuntimeError, subprocess.CalledProcessError) as e:
+        if _sanitize():
+            raise RuntimeError(
+                "SLA_TPU_SANITIZE is set but the instrumented build failed "
+                f"(g++ needs -fsanitize support): {e}"
+            ) from e
         return None
 
 
@@ -78,7 +117,14 @@ def _load_locked() -> ctypes.CDLL | None:
         return None
     try:
         lib = ctypes.CDLL(str(path))
-    except OSError:
+    except OSError as e:
+        if _sanitize():
+            # never fall back to Python in sanitizer mode: the point is
+            # running the native code under ASan
+            raise RuntimeError(
+                "SLA_TPU_SANITIZE is set but the instrumented library failed "
+                f"to load (libasan must be LD_PRELOADed before Python): {e}"
+            ) from e
         _load_failed = True
         return None
 

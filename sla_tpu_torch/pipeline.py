@@ -16,6 +16,11 @@ device tools, `entry.entry()`) runs the whole encode cascade as one kernel,
 the CUDA kernel on a CUDA device, the plain PyTorch version on the CPU
 (kernels/cuda_filters.py). Rows need no padding: the kernels take any
 (B, L), every order the encoder admits, and every long-term lag.
+
+With SLA_TPU_DEBUG_ASSERTS set, every stage runs its checked plain version
+on the rows' own device instead of the kernel (debug.py): sla_tpu's assert
+mode runs its checkified scans instead of Pallas in the same way. This
+route is taken only when the variable is set.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import os
 import numpy as np
 import torch
 
-from . import native
+from . import debug, native
 from .kernels import cuda_filters
 from .kernels.emphasis import pre_emphasis
 from .kernels.lattice import lattice_init_state, lattice_predict
@@ -41,6 +46,8 @@ DEFAULT_DEVICE_THRESHOLD = 16_000_000
 def encode_stage1(data: torch.Tensor, parcor_coef: torch.Tensor, parcor_order: int) -> torch.Tensor:
     """data: (B, L) int32, parcor_coef: (B, p) int32 (orders 1..p).
     Returns the PARCOR residual (B, L)."""
+    if debug.asserts_enabled():
+        return cuda_filters.lattice_predict_plain(data, parcor_coef[:, :parcor_order])
     return cuda_filters.lattice_predict(data, parcor_coef[:, :parcor_order])
 
 
@@ -51,6 +58,8 @@ def encode_stage2(
     disables the long-term stage for that row); ltm_coef: (B, >=T) int32
     Q31 numpy. Returns the final residual handed to the entropy coder."""
     md, q15 = longterm_params(pitch, ltm_coef, num_taps, residual.device)
+    if debug.asserts_enabled():
+        return cuda_filters.stage2_predict_plain(residual, md, q15, lms_order)
     return cuda_filters.stage2_predict(residual, md, q15, lms_order)
 
 
@@ -63,9 +72,9 @@ def decode_stage(
     encode_stage2. Returns PCM rows before the MS inverse and the final
     left shift."""
     md, q15 = longterm_params(pitch, ltm_coef, num_taps, residual.device)
-    return cuda_filters.synth_cascade(
-        residual, parcor_coef[:, :parcor_order], md, q15, lms_order
-    )
+    synth = (cuda_filters.synth_cascade_plain if debug.asserts_enabled()
+             else cuda_filters.synth_cascade)
+    return synth(residual, parcor_coef[:, :parcor_order], md, q15, lms_order)
 
 
 def encode_filters_fused(
@@ -76,7 +85,13 @@ def encode_filters_fused(
     pre-emphasis -> lattice predict -> long-term predict -> LMS predict.
     data: (B, L) int32; parcor_coef: (B, >=p) int32; pitch and ltm_coef
     numpy as in encode_stage2. Equal to encode_stage1 then encode_stage2,
-    and to encode_filters, for every pitch and order."""
+    and to encode_filters, for every pitch and order. Assert mode runs the
+    two checked stages instead, as sla_tpu does."""
+    if debug.asserts_enabled():
+        return encode_stage2(
+            encode_stage1(data, parcor_coef, parcor_order), pitch, ltm_coef,
+            num_taps, lms_order,
+        )
     md, q15 = longterm_params(pitch, ltm_coef, num_taps, data.device)
     return cuda_filters.fused_encode(
         data, parcor_coef[:, :parcor_order], md, q15, lms_order
@@ -142,25 +157,6 @@ def device_entropy_on(config, backend: str) -> bool:
     if getattr(config, "device_entropy", "auto") == "off":
         return False
     return backend in ("device", "mesh")
-
-
-# sla_tpu's debug and sanitizer switches: the ASan + UBSan and -DSLA_TPU_DEBUG
-# builds of the native library (sla_tpu/native/__init__.py) and the checkify
-# asserts (sla_tpu/debug.py)
-UNPORTED_ENV = ("SLA_TPU_SANITIZE", "SLA_TPU_NATIVE_DEBUG", "SLA_TPU_DEBUG_ASSERTS")
-
-
-def refuse_unported_env() -> None:
-    """Raises if one of sla_tpu's debug or sanitizer variables is set: the
-    port has none of those builds or checks yet, and a user who asked for
-    them would otherwise get the production path and no word. Read when an
-    Encoder or Decoder is made, not at import."""
-    for name in UNPORTED_ENV:
-        if os.environ.get(name, "").strip():
-            raise NotImplementedError(
-                f"{name}: this debug or sanitizer variant is not ported to "
-                "sla_tpu_torch yet; unset it"
-            )
 
 
 def to_rows(batch: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -4,12 +4,15 @@ the caller asks for the CPU.
 
 - A fresh interpreter that refuses every jax import runs a port
   encode/decode round trip on both backends, the known-parameter entry
-  step and the device tools' checks; no loaded module may come from
-  `sla_tpu/`, by name or by file.
+  step, the entry points (the CLI with corpus mode and the streaming
+  decode, `encode_whole_batch`, `optimize_encode`, `python -m`, and the
+  modules `hostref`, `command_line` and `debug`) and the device tools'
+  checks; no loaded module may come from `sla_tpu/`, by name or by file.
 - A copy of `sla_tpu_torch/` and `chip_smoke.py` alone in a temporary
-  directory runs the round trip with `verify=True` and `entry()` on the
-  CPU (the native library it would build is taken from this checkout's
-  build cache, so the test stays short).
+  directory runs the round trip with `verify=True`, `entry()` and the
+  entry points on the CPU, and `python -m sla_tpu_torch -v` (the native
+  library it would build is taken from this checkout's build cache, so the
+  test stays short).
 """
 
 import pathlib
@@ -56,6 +59,34 @@ forward, args = entry.entry(device="cpu")
 assert forward(*args).shape == (16, 4096)
 """
 
+# the entry points: every module the port has beside the encoder and decoder
+_ENTRY_POINTS = r"""
+import io, contextlib, runpy, tempfile, pathlib
+from sla_tpu_torch import cli, command_line, corpus, debug, hostref, optimize, streaming, wavio
+from sla_tpu_torch.encoder import encode_whole_batch
+
+d = pathlib.Path(tempfile.mkdtemp())
+(d / "wavs").mkdir()
+wavio.write_wav(str(d / "wavs" / "a.wav"), wavio.WavFile(2, 44100, 16, pcm))
+wavio.write_wav(str(d / "wavs" / "b.wav"), wavio.WavFile(1, 44100, 16, pcm[:1]))
+assert cli.main(["sla", "-e", "-q", "-b", "-f", "2", str(d / "wavs"), str(d / "slas")],
+                device="cpu") == 0
+assert cli.main(["sla", "-d", "-s", "-q", str(d / "slas" / "a.sla"), str(d / "a.wav")],
+                device="cpu") == 0
+assert np.array_equal(wavio.read_wav(str(d / "a.wav")).data, pcm)
+jobs = [(st.WaveFormat(2, 16, 44100), st.PRESETS[2], pcm)]
+assert encode_whole_batch(jobs, device="cpu")[0] == (d / "slas" / "a.sla").read_bytes()
+assert st.optimize_encode(pcm, st.WaveFormat(2, 16, 44100), device="cpu")[0]
+buf = io.StringIO()
+sys.argv = ["sla_tpu_torch", "-v"]
+with contextlib.redirect_stdout(buf):
+    try:
+        runpy.run_module("sla_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0
+assert "Version" in buf.getvalue()
+"""
+
 _TOOLS = r"""
 from sla_tpu_torch.tools import bench_device, verify_device
 assert all(ok for _, ok in bench_device.check_cells("cpu", rows=4, samples=256))
@@ -85,7 +116,7 @@ def _run(script: str, cwd: pathlib.Path) -> str:
 
 
 def test_port_round_trip_loads_no_jax():
-    out = _run(_GUARD + _ROUND_TRIP + _TOOLS + _REPORT, REPO)
+    out = _run(_GUARD + _ROUND_TRIP + _ENTRY_POINTS + _TOOLS + _REPORT, REPO)
     assert "LOADED []" in out, out
     assert "FROM_SLA_TPU []" in out, out
 
@@ -101,10 +132,15 @@ def test_port_runs_without_the_sla_tpu_package(tmp_path):
     for lib in cache.glob("libsla_native_*.so"):
         shutil.copy(lib, tmp_path / "build" / "sla_tpu_torch" / lib.name)
     assert not (tmp_path / "sla_tpu").exists()
-    out = _run(_GUARD + _ROUND_TRIP + _REPORT, tmp_path)
+    out = _run(_GUARD + _ROUND_TRIP + _ENTRY_POINTS + _REPORT, tmp_path)
     assert "LOADED []" in out, out
     assert "FROM_SLA_TPU []" in out, out
     assert not list((tmp_path / "sla_tpu_torch").rglob("*.so")), "a build wrote into the package"
+    # `python -m sla_tpu_torch` from the copy, with no sla_tpu/ beside it
+    proc = subprocess.run([sys.executable, "-m", "sla_tpu_torch", "-v"], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("SLA - Solitary Lossless Audio Compressor Version")
 
 
 @pytest.mark.parametrize("which", ["Encoder", "Decoder"])

@@ -3,8 +3,6 @@ Encoder/Decoder on backend='device', device='cpu' (the plain PyTorch
 stages) against sla_tpu's host and device backends, byte for byte, and
 exact PCM back."""
 
-import os
-
 import numpy as np
 import pytest
 
@@ -107,28 +105,3 @@ def test_mesh_backend_raises():
     blob = _encode(sla_tpu, pcm, bits, rate, 1, "host")
     with pytest.raises(NotImplementedError, match="mesh"):
         st.Decoder(st.DecoderConfig(backend="mesh"), device="cpu").decode_whole(blob)
-
-
-@pytest.mark.parametrize("name", ["SLA_TPU_SANITIZE", "SLA_TPU_NATIVE_DEBUG",
-                                  "SLA_TPU_DEBUG_ASSERTS"])
-def test_debug_and_sanitizer_variables_raise(monkeypatch, name):
-    """sla_tpu's debug and sanitizer variants are not ported: setting one
-    makes the port's Encoder and Decoder refuse to start, read when they
-    are made."""
-    monkeypatch.setitem(os.environ, name, "1")
-    with pytest.raises(NotImplementedError, match=name):
-        st.Encoder(st.EncoderConfig(backend="device"), device="cpu")
-    with pytest.raises(NotImplementedError, match=name):
-        st.Decoder(st.DecoderConfig(backend="device"), device="cpu")
-    monkeypatch.delitem(os.environ, name)
-    st.Encoder(device="cpu")
-    st.Decoder(device="cpu")
-
-
-def test_encode_whole_batch_not_ported_raises():
-    from sla_tpu_torch.encoder import encode_whole_batch
-
-    pcm, bits, rate = _stereo_second(seed=17, n=20000)
-    job = (st.WaveFormat(2, bits, rate), st.PRESETS[1], pcm)
-    with pytest.raises(NotImplementedError, match="encode_whole_batch"):
-        encode_whole_batch([job], st.EncoderConfig())
