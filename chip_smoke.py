@@ -66,7 +66,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
    CPU's; (d) SLA_TPU_DEBUG_ASSERTS=1: a 30-s device round trip through the
    checked plain versions on CUDA tensors (no filter kernel) writes the
    unchecked stream and decodes exactly, and a seeded LMS overflow on CUDA
-   tensors raises. One line of wall times beside the card's name and limit.
+   tensors raises. One line of wall times beside the card's name and limit;
+6. mesh (sla_tpu_torch.parallel), each part with its kernels required:
+   the card count and the 'auto' rule ('device' on one card, 'mesh' on
+   more); phase 3's clip through Encoder/Decoder(backend='mesh') on the
+   mesh of every card (K1, K2, K8; K3, K9) and on four shards (all on the
+   card of a one-card machine) with SLA_TPU_MESH_CHANNELS=2 (blocks 2 x
+   channels 2), K1 launched once a shard and chunk, each stream
+   equal to phase 3's and decoded exactly; entry.dryrun_multichip(4) on the
+   card (K4). Phase 3's trace also gives the device-to-host copy time with
+   fetch_int32 beside a trace with the previous commit's int32 fetch. One
+   line of wall times beside the card's name and limit.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and the result. Imports neither jax nor
@@ -758,10 +768,10 @@ class Spans:
             setattr(mod, name, fn)
 
 
-def device_profile(fn) -> tuple[list[tuple[str, float]], float, float]:
+def device_profile(fn) -> tuple[list[tuple[str, float]], float, float, float]:
     """One torch.profiler trace of fn(): (the five device operations that
     take the most device time, with their ms; the device's busy ms; the
-    window's wall ms)."""
+    window's wall ms; the device-to-host copies' ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -780,8 +790,9 @@ def device_profile(fn) -> tuple[list[tuple[str, float]], float, float]:
               if e.device_type == torch.autograd.DeviceType.CUDA and dev_us(e) > 0
               and not e.key.startswith("Activity Buffer")]
     top = sorted(events, key=dev_us, reverse=True)[:5]
+    d2h_ms = sum(dev_us(e) for e in events if e.key.startswith("Memcpy DtoH")) / 1e3
     return ([(e.key, dev_us(e) / 1e3) for e in top], sum(dev_us(e) for e in events) / 1e3,
-            wall_ms)
+            wall_ms, d2h_ms)
 
 
 def golomb_blocks(st, blob: bytes) -> tuple[int, int]:
@@ -802,7 +813,7 @@ def round_trip(st, label: str, pcm, bits: int, rate: int, preset: int, detail: b
     default), then with device_entropy='off', each against the host
     backend. `detail` (the main path's clip): count the launches, split the
     entropy stage, and take the trace."""
-    from sla_tpu_torch import rice_device
+    from sla_tpu_torch import pipeline, rice_device
     from sla_tpu_torch.kernels import cuda_entropy as ce
     from sla_tpu_torch.kernels import cuda_filters as cf
 
@@ -887,11 +898,22 @@ def round_trip(st, label: str, pcm, bits: int, rate: int, preset: int, detail: b
             blob_t = encoder("device", "cuda").encode_whole(pcm)
             st.Decoder(st.DecoderConfig(backend="device"), device="cuda").decode_whole(blob_t)
 
-        top, busy_ms, wall_ms = device_profile(one_each)
+        top, busy_ms, wall_ms, d2h_ms = device_profile(one_each)
+        # the same trace with the previous commit's residual fetch (the full
+        # int32 copy) in place of fetch_int32's int16 narrowing
+        narrowing = pipeline.fetch_int32
+        pipeline.fetch_int32 = lambda x: x.cpu().numpy()
+        try:
+            _, busy_prev, wall_prev, d2h_prev = device_profile(one_each)
+        finally:
+            pipeline.fetch_int32 = narrowing
         log("trace", f"{label}: one encode + one decode under torch.profiler, {wall_ms:.1f} ms "
             f"wall, device busy {busy_ms:.1f} ms, idle share {100 * (1 - busy_ms / wall_ms):.1f} %; "
             "top five device operations: "
             + "; ".join(f"{name} {t:.2f} ms" for name, t in top))
+        log("trace", f"{label}: device-to-host copies {d2h_ms:.2f} ms with fetch_int32 (residuals "
+            f"as int16 when they fit) against {d2h_prev:.2f} ms with the previous commit's int32 "
+            f"fetch (busy {busy_prev:.1f} ms, wall {wall_prev:.1f} ms), same call")
     return launches, blob
 
 
@@ -1176,6 +1198,76 @@ def phase_entry_points(env: dict, device_blob: bytes) -> dict:
     return runs.total
 
 
+# -- phase 6 -----------------------------------------------------------------
+
+MESH_ENCODE_KERNELS = ("lattice_predict", "stage2_predict", "rice_encode_blocks")
+
+
+def phase_mesh(env: dict, device_blob: bytes) -> dict:
+    """backend='mesh' on the card: the 'auto' rule for this card count,
+    phase 3's clip through Encoder/Decoder(backend='mesh') on the mesh of
+    every card and on four shards (parallel.sharding.SHARDS = 4: all on the
+    card of a one-card machine) with SLA_TPU_MESH_CHANNELS=2 (blocks 2 x
+    channels 2), each stream equal to phase 3's (the host backend's) and
+    decoded exactly, with K1, K2, K8 on encode and K3, K9 on decode, and K1
+    launched once a shard and filter chunk; then
+    entry.dryrun_multichip(4) on the card, K4 required."""
+    import sla_tpu_torch as st
+    from sla_tpu_torch import entry, pipeline
+    from sla_tpu_torch.parallel import sharding
+
+    cards = torch.cuda.device_count()
+    auto = pipeline.select_backend("auto", pipeline.DEFAULT_DEVICE_THRESHOLD,
+                                   torch.device("cuda"))
+    if auto != ("mesh" if cards > 1 else "device"):
+        raise AssertionError(f"'auto' picked {auto!r} with {cards} card(s)")
+    log("mesh", f"{cards} card(s): 'auto' over the threshold picks {auto!r}")
+    runs = Launches()
+    times: dict[str, float] = {}
+    cd = cd_clip()
+    ep = st.preset_parameter(2, 2)
+    notes = []
+    k1_a_shard = []
+    for label, shards, channels in (("every card", None, None), ("4 shards", 4, "2")):
+        sharding.SHARDS = shards
+        if channels:
+            os.environ["SLA_TPU_MESH_CHANNELS"] = channels
+        try:
+            n_shards = len(sharding.mesh_devices("cuda"))
+            enc = st.Encoder(st.EncoderConfig(backend="mesh"), device="cuda")
+            enc.set_wave_format(st.WaveFormat(2, 16, 44100))
+            enc.set_encode_parameter(ep)
+            blob, times[f"{label} encode"], got_e = runs.part(
+                f"mesh encode, {label}", lambda: enc.encode_whole(cd), MESH_ENCODE_KERNELS)
+            if blob != device_blob:
+                raise AssertionError(f"mesh ({label}): the stream differs from the host backend's")
+            dec = st.Decoder(st.DecoderConfig(backend="mesh"), device="cuda")
+            (_, out), times[f"{label} decode"], got_d = runs.part(
+                f"mesh decode, {label}", lambda: dec.decode_whole(blob), DECODE_KERNELS)
+            if out.shape != cd.shape or not np.array_equal(out, cd):
+                raise AssertionError(f"mesh ({label}): the decoded PCM differs from the input")
+        finally:
+            sharding.SHARDS = None
+            os.environ.pop("SLA_TPU_MESH_CHANNELS", None)
+        # every shard is its own tensor and launch, on a repeated card too
+        if got_e["lattice_predict"] % n_shards:
+            raise AssertionError(f"mesh ({label}): K1 launched {got_e['lattice_predict']} "
+                                 f"times over {n_shards} shards")
+        k1_a_shard.append(got_e["lattice_predict"] // n_shards)
+        notes.append(f"{label} ({n_shards} shards, SLA_TPU_MESH_CHANNELS "
+                     f"{channels or 'unset'}): encode {got_e}, decode {got_d}")
+    if k1_a_shard[0] != k1_a_shard[1]:
+        raise AssertionError(f"mesh: K1 launches a shard differ between the meshes: {k1_a_shard}")
+    _, times["dryrun_multichip(4)"], got = runs.part(
+        "dryrun_multichip(4)", lambda: entry.dryrun_multichip(4, device="cuda"),
+        ("fused_encode",) + MESH_ENCODE_KERNELS)
+    notes.append(f"dryrun_multichip(4) {got}")
+    log("mesh", "5 min CD stereo preset 2 on backend='mesh': byte-identical to the host backend, "
+        "PCM exact; " + "; ".join(notes))
+    log("mesh", f"{env['card']} | wall s: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return runs.total
+
+
 def main() -> int:
     env = phase_environment()
     timing = phase_kernels(env)
@@ -1183,9 +1275,11 @@ def main() -> int:
     slice_launches, device_blob = phase_slice()
     known_launches = phase_known_parameters()
     entry_launches = phase_entry_points(env, device_blob)
+    mesh_launches = phase_mesh(env, device_blob)
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
-         "launches": slice_launches[name] + known_launches[name] + entry_launches[name],
+         "launches": slice_launches[name] + known_launches[name] + entry_launches[name]
+         + mesh_launches[name],
          **timing[name]}
         for name in KERNELS
     ]

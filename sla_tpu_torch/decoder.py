@@ -17,8 +17,10 @@ Decode strategy (vs. the strictly sequential reference, SLADecoder.c:660-732):
 
 Backends as in sla_tpu_torch.encoder: the device branch of step 3 is the
 port's decode stage (K3) on the decoder's torch device, and step 2 then
-runs there too (K9) unless DecoderConfig.device_entropy='off'. 'mesh' is
-not ported yet and raises.
+runs there too (K9) unless DecoderConfig.device_entropy='off'. The mesh
+branch splits step 3's rows over a mesh of devices (parallel/), K3 on
+every shard; K9 still decodes on the decoder's device, and its rows go
+to the shards device to device.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from .dsp.channel import ms_to_lr_int32
 from .errors import ApiResult, SLAError
 from .encoder import resolve_device
 from .format import EncodeParameter, HeaderInfo, WaveFormat, decode_header
+from .parallel import sharding
 
 
 @dataclasses.dataclass
@@ -60,7 +63,7 @@ class DecoderConfig:
     max_lms_order_per_filter: int = 40
     enable_crc_check: bool = True
     verbose: bool = False
-    backend: str = "auto"  # 'auto' | 'device' | 'host' (see EncoderConfig)
+    backend: str = "auto"  # 'auto' | 'device' | 'mesh' | 'host' (see EncoderConfig)
     # on-card entropy decode (mirror of EncoderConfig.device_entropy): when
     # the synthesis batch runs on the device backend, the recursive-Rice
     # payloads decode there too (K9), into the rows the synthesis reads.
@@ -1094,7 +1097,16 @@ class Decoder:
                 if not (use_premade or use_dev):
                     residual[bi * C : (bi + 1) * C, : blk.num_samples] = payloads[i]
                 _fill_block_filter_rows(blk, bi, C, coef, pitch, ltm, lengths)
-            if backend == "host":
+            if backend == "mesh":
+                # the rows split over the mesh's devices (see the Encoder's
+                # mesh branch); K9's rows go from the decoder's device to
+                # the shards without a trip through the host
+                mesh = sharding.make_mesh(sharding.mesh_devices(self.device))
+                d_res, d_coef = sharding.shard_batch(mesh, residual, coef)
+                synth = sharding.gather(
+                    sharding.sharded_decode_step(d_res, d_coef, pitch, ltm, p, T, M)
+                )
+            elif backend == "host":
                 synth = native.synth_rows(residual, coef, pitch, ltm, T, M, lengths)
             else:
                 dev = self.device

@@ -23,10 +23,13 @@ The per-block filter work that the reference runs serially per channel
 Backends: 'host' (native C++ cascade), 'device' (the port's stages on the
 encoder's torch device: the CUDA kernels K1 and K2 on a card, their plain
 versions on the CPU; entropy coding then runs there too, K8, unless
-EncoderConfig.device_entropy='off'), 'auto' (device for big batches when
-that device is a CUDA card, host otherwise). 'mesh' is not ported yet and
-raises. `encode_whole_batch` puts many files' blocks through one filter
-batch.
+EncoderConfig.device_entropy='off'), 'mesh' (the same stages with the
+rows split over a mesh of devices, parallel/: every CUDA card for a CUDA
+device, 8 shards of the CPU for the CPU; K8 then codes the residual
+gathered onto the encoder's device), 'auto' (device for big batches when
+that device is a CUDA card, mesh when the mesh would span more than one
+card, host otherwise). `encode_whole_batch` puts many files' blocks through one
+filter batch.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import time
 import numpy as np
 import torch
 
-from . import native, pipeline, rice, rice_device
+from . import debug, native, pipeline, rice, rice_device
 from .analysis.partition import search_optimal_partitions_batch
 from .analysis.pitch import longterm_coef_rows
 from .bitio import BitWriter, zigzag_encode_array
@@ -61,6 +64,7 @@ from .dsp.lpc import data_bit_width, width_from_maxabs
 from .dsp.quantize import quantize_longterm, quantize_parcor, rshift_for_sint32
 from .errors import ApiResult, SLAError
 from .format import EncodeParameter, HeaderInfo, WaveFormat, encode_header
+from .parallel import sharding
 
 
 @dataclasses.dataclass
@@ -69,10 +73,13 @@ class EncoderConfig:
 
     `backend` selects where the per-sample filter cascade runs:
     'device' = the batched torch stages on the encoder's device, 'host' =
-    native C++ interleaved cascade, 'mesh' = multi-GPU (not ported yet:
-    raises), 'auto' = device for batches big enough to amortize dispatch +
-    transfer when the device is a CUDA card, host otherwise (threshold in
-    row-samples via SLA_TPU_DEVICE_THRESHOLD)."""
+    native C++ interleaved cascade, 'mesh' = the device stages with the
+    rows split over every CUDA card (8 CPU shards for device="cpu";
+    parallel.sharding.SHARDS sets the count), 'auto' = device for batches
+    big enough to amortize dispatch + transfer when the device is a CUDA
+    card, mesh when the mesh would span more than one card
+    (pipeline.mesh_cards), host otherwise (threshold in row-samples via
+    SLA_TPU_DEVICE_THRESHOLD)."""
 
     max_num_channels: int = 8
     max_num_block_samples: int = 16384
@@ -909,9 +916,14 @@ class Encoder:
             rows += C
         row_samples = sum(pl.num_samples * C for pl, C, _ in rows_meta)
         backend = self._select_backend(row_samples)
+        if backend == "mesh" and debug.asserts_enabled():
+            # the mesh functions refuse assert mode, as sla_tpu's do
+            # (checkify cannot cross shard_map); assert mode runs the
+            # checked single-device stages instead
+            backend = "device"
         # the host path pads L to the stream's max block size; the device
-        # stages take exact rows (no padding) with L the chunk's longest
-        # block — the kernels accept any (B, L)
+        # and mesh stages take exact rows with L the chunk's longest block
+        # (the kernels accept any (B, L))
         L = (
             ep.max_num_block_samples if backend == "host"
             else max(pl.num_samples for pl, _, _ in rows_meta)
@@ -945,7 +957,15 @@ class Encoder:
 
         res1_dev = None
         res2_dev = None
-        if backend == "host":
+        if backend == "mesh":
+            # the rows split over the mesh's devices (parallel/); stage 1
+            # stays on the shards for stage 2, and pitch analysis reads a
+            # host copy
+            mesh = sharding.make_mesh(sharding.mesh_devices(self.device))
+            d_batch, d_coefs = sharding.shard_batch(mesh, batch, coefs)
+            res1_dev = sharding.sharded_encode_stage1(d_batch, d_coefs, p)
+            residual1 = sharding.gather(res1_dev)
+        elif backend == "host":
             if in_place:
                 cstride = base0.strides[0] // 4
                 offs = np.empty((B,), dtype=np.int64)
@@ -965,7 +985,7 @@ class Encoder:
                 pipeline.to_rows(batch, self.device),
                 pipeline.to_rows(coefs, self.device), p,
             )
-            residual1 = res1_dev.cpu().numpy()
+            residual1 = pipeline.fetch_int32(res1_dev)
 
         # host pitch analysis on the PARCOR residual, per (block, channel)
         pitches = np.zeros((B,), dtype=np.int32)
@@ -999,7 +1019,17 @@ class Encoder:
                     ltm[rs] = quantize_longterm(
                         np.stack([lt.coef for _, lt in keep])
                     )
-        if backend == "host":
+        if backend == "mesh":
+            res2_mesh = sharding.sharded_encode_stage2(
+                res1_dev, pitches, ltm, T, ep.lms_order_per_filter
+            )
+            residual2 = sharding.gather(res2_mesh)
+            if native.available() and self._device_entropy_on(backend):
+                # K8 codes a block's channels together, and a block's
+                # channels may lie on two shards: one copy of the residual
+                # on the encoder's device, gathered device to device
+                res2_dev = sharding.gather_to(res2_mesh, self.device)
+        elif backend == "host":
             residual2 = native.predict_stage2_rows(
                 residual1, pitches, ltm, T, ep.lms_order_per_filter, lengths
             )
@@ -1007,7 +1037,7 @@ class Encoder:
             res2_dev = pipeline.encode_stage2(
                 res1_dev, pitches, ltm, T, ep.lms_order_per_filter
             )
-            residual2 = res2_dev.cpu().numpy()
+            residual2 = pipeline.fetch_int32(res2_dev)
         init_all = (
             native.initial_params_rows(residual2, lengths)
             if native.available()

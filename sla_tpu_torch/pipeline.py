@@ -116,15 +116,29 @@ def encode_filters(
     return out
 
 
+def mesh_cards(device: torch.device) -> list[torch.device]:
+    """The CUDA cards a mesh on `device` spans: every card torch sees, or
+    only `device` itself inside a torch.distributed group of more than one
+    process, which runs one process a card (corpus.py's process grid)."""
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        index = torch.cuda.current_device() if device.index is None else device.index
+        return [torch.device("cuda", index)]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def select_backend(configured: str, row_samples: int, device: torch.device) -> str:
     """Filter backend for the Encoder and Decoder: 'host' (native C++
     cascade) for batches too small to amortize a device dispatch, 'device'
     (the torch stages on `device`) for big batches when that device is a
-    CUDA card — the tier sla_tpu gives a TPU. Without the native library
-    every batch takes the device stages (on the CPU, their plain versions).
-    'mesh' is not ported yet."""
-    if configured == "mesh":
-        raise NotImplementedError("backend='mesh' (multi-GPU) is not ported yet")
+    CUDA card — the tier sla_tpu gives a TPU — and 'mesh' (the stages
+    sharded over the cards of mesh_cards, parallel/) when that is more than
+    one card, as sla_tpu picks its mesh (sla_tpu/pipeline.py:705-711). A
+    CPU device never picks the mesh under 'auto': torch has no
+    multi-device CPU runtime. Without the native library every batch takes
+    the device stages (on the CPU, their plain versions)."""
     if configured != "auto":
         return configured
     if not native.available():
@@ -136,7 +150,7 @@ def select_backend(configured: str, row_samples: int, device: torch.device) -> s
     if row_samples < threshold:
         return "host"
     if device.type == "cuda" and torch.cuda.is_available():
-        return "device"
+        return "mesh" if len(mesh_cards(device)) > 1 else "device"
     return "host"
 
 
@@ -157,6 +171,16 @@ def device_entropy_on(config, backend: str) -> bool:
     if getattr(config, "device_entropy", "auto") == "off":
         return False
     return backend in ("device", "mesh")
+
+
+def fetch_int32(x: torch.Tensor) -> np.ndarray:
+    """An int32 tensor on the host, equal to x.cpu().numpy(): copied as
+    int16 and widened on the host when every value fits (residuals usually
+    do), which halves the device-to-host copy; one on-device range check
+    and one scalar read decide (sla_tpu/pipeline.py:36-56)."""
+    if bool(((x >= -32768) & (x <= 32767)).all()):
+        return x.to(torch.int16).cpu().numpy().astype(np.int32)
+    return x.cpu().numpy()
 
 
 def to_rows(batch: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -3,7 +3,8 @@ a file of the sla_tpu package, and its entry points need a CUDA card unless
 the caller asks for the CPU.
 
 - A fresh interpreter that refuses every jax import runs a port
-  encode/decode round trip on both backends, the known-parameter entry
+  encode/decode round trip on the device, host and mesh backends (the
+  mesh over two CPU shards, `sla_tpu_torch.parallel`), the known-parameter entry
   step, the entry points (the CLI with corpus mode and the streaming
   decode, `encode_whole_batch`, `optimize_encode`, `python -m`, and the
   modules `hostref`, `command_line` and `debug`) and the device tools'
@@ -53,6 +54,16 @@ for backend in ("device", "host"):
     assert np.array_equal(dec.decode_whole(blobs[-1])[1], pcm)
 assert blobs[0] == blobs[1]
 assert st.native.available()
+
+# the mesh backend (sla_tpu_torch.parallel) over two CPU shards
+from sla_tpu_torch.parallel import sharding
+sharding.SHARDS = 2
+enc = st.Encoder(st.EncoderConfig(backend="mesh"), device="cpu")
+enc.set_wave_format(st.WaveFormat(2, 16, 44100))
+enc.set_encode_parameter(st.PRESETS[1])
+assert enc.encode_whole(pcm) == blobs[1]
+dec = st.Decoder(st.DecoderConfig(backend="mesh"), device="cpu")
+assert np.array_equal(dec.decode_whole(blobs[1])[1], pcm)
 
 from sla_tpu_torch import entry
 forward, args = entry.entry(device="cpu")

@@ -18,6 +18,7 @@ import sla_tpu_torch as st
 from sla_tpu_torch import native, pipeline, rice, rice_device
 from sla_tpu_torch.constants import BlockDataType
 from sla_tpu_torch.kernels import cuda_entropy, cuda_filters
+from sla_tpu_torch.parallel import sharding
 from sla_tpu_torch.tools import verify_device as vd
 
 from .test_encode_decode import gen_wave
@@ -188,14 +189,23 @@ def test_device_entropy_policy_matches_sla_tpu(monkeypatch, value, config, backe
     assert pipeline.device_entropy_on(st.DecoderConfig(device_entropy=config), backend) == on
 
 
-def test_mesh_backend_still_raises_with_device_entropy_forced(monkeypatch):
+def test_mesh_with_device_entropy_forced_equals_host(monkeypatch):
+    """SLA_TPU_DEVICE_ENTROPY=1 on the mesh backend: K8 codes the residual
+    gathered onto the encoder's device, and the stream equals the host
+    backend's and sla_tpu's; the mesh decode (K9, then the shards) is exact."""
     monkeypatch.setenv("SLA_TPU_DEVICE_ENTROPY", "1")
     pcm = gen_wave("chirp", 6000, 2, 16, 0, seed=3)
     enc = st.Encoder(st.EncoderConfig(backend="mesh"), device="cpu")
     enc.set_wave_format(st.WaveFormat(2, 16, 44100))
     enc.set_encode_parameter(PARAM)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        enc.encode_whole(pcm)
+    blob = enc.encode_whole(pcm)
+    assert enc._device_entropy_active
+    monkeypatch.delenv("SLA_TPU_DEVICE_ENTROPY")
+    assert blob == _encode(st, pcm)[1] == _encode(sla_tpu, pcm)[1]
+    monkeypatch.setenv("SLA_TPU_DEVICE_ENTROPY", "1")
+    monkeypatch.setattr(sharding, "SHARDS", 2)
+    dec = st.Decoder(st.DecoderConfig(backend="mesh"), device="cpu")
+    assert np.array_equal(dec.decode_whole(blob)[1], pcm)
 
 
 # -- the codec on device="cpu" -----------------------------------------------------

@@ -11,6 +11,7 @@ from sla_tpu import wavio
 
 import sla_tpu_torch as st
 from sla_tpu_torch.kernels import cuda_filters
+from sla_tpu_torch.parallel import sharding
 
 
 def _stereo_second(seed=11, n=44100):
@@ -98,10 +99,14 @@ def test_cuda_device_without_gpu_raises():
         st.Decoder(st.DecoderConfig(backend="device"), device="cuda")
 
 
-def test_mesh_backend_raises():
+def test_mesh_backend_round_trip(monkeypatch):
+    """backend='mesh' on device='cpu' (8 CPU shards for the encoder, 2 for
+    the decoder): the stream equals sla_tpu's host stream, and the mesh
+    decode gives the exact PCM."""
     pcm, bits, rate = _stereo_second(seed=15, n=20000)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _encode(st, pcm, bits, rate, 1, "mesh", device="cpu")
-    blob = _encode(sla_tpu, pcm, bits, rate, 1, "host")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        st.Decoder(st.DecoderConfig(backend="mesh"), device="cpu").decode_whole(blob)
+    blob = _encode(st, pcm, bits, rate, 0, "mesh", device="cpu")
+    assert blob == _encode(sla_tpu, pcm, bits, rate, 0, "host")
+    monkeypatch.setattr(sharding, "SHARDS", 2)
+    dec = st.Decoder(st.DecoderConfig(backend="mesh"), device="cpu")
+    _, out = dec.decode_whole(blob)
+    assert np.array_equal(out, pcm)
