@@ -91,6 +91,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the workers) and bench_synth_micro (host), their numbers beside the
    card's name and limit. Each tool's whole output goes to
    chiprun_out/tools/.
+8. threshold and benchmark: the 'auto' device threshold swept on the
+   card, bench.make_signal at 5, 15, 30, 60, 120, 180 and 300 s (0.44M to
+   26.5M row-samples) encoded and decoded on backend='host' and on
+   backend='device', best of 3 after a warm call, each device stream equal
+   to the host's, every decode exact, the device rows launching K1, K2,
+   K8, K3 and K9 and the host rows none; one line a size beside the
+   card's name and limit, then the threshold the sweep gives for encode
+   and for decode (pipeline.DEFAULT_DEVICE_THRESHOLD is set by it) and
+   the largest size's stages; then the benchmark twin
+   (sla_tpu_torch.bench, bench.py's metric) in this process under 'auto'
+   as it stands and forced onto the card with SLA_TPU_DEVICE_THRESHOLD=0
+   (K1, K2, K8, K3, K9 required), and once as
+   `python -m sla_tpu_torch.bench`, each last line bench.py's four keys.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and the result. Imports neither jax nor
@@ -1433,6 +1446,166 @@ def phase_tools(env: dict) -> dict:
     return total
 
 
+# -- phase 8 -----------------------------------------------------------------
+
+# the sweep's lengths of bench.make_signal, s: 0.44M to 26.5M row-samples,
+# across both of phase 5's host tails (2.4M and 5.5M)
+SWEEP_SECONDS = (5, 15, 30, 60, 120, 180, 300)
+SWEEP_REPS = 3
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]  # bench.py's last line
+
+
+def best_of(fn, reps: int):
+    """fn()'s result and its best wall time over `reps` calls after a warm
+    call (fn's result is on the host, so each call has ended on the card)."""
+    out = fn()
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        t = time.perf_counter() - t0
+        best = t if best is None else min(best, t)
+    return out, best
+
+
+def sweep_row(runs: "Launches", seconds: int) -> dict:
+    """bench.make_signal(seconds) encoded and decoded on backend='host' and
+    on backend='device', best of SWEEP_REPS each: the device stream equal
+    to the host's, both decodes exact, the host rows launching no kernel
+    and the device rows K1, K2, K8 and K3, K9."""
+    import sla_tpu_torch as st
+    from sla_tpu_torch import bench
+
+    pcm = bench.make_signal(seconds)
+    row = {"seconds": seconds, "row_samples": pcm.size}
+    blobs = {}
+    for backend in ("host", "device"):
+        enc = bench.encoder("cuda", backend)
+        dec = st.Decoder(st.DecoderConfig(backend=backend), device="cuda")
+        label = f"sweep {seconds} s {backend}"
+        (blob, row[f"{backend} encode"]), _, got = runs.part(
+            f"{label} encode", lambda: best_of(lambda: enc.encode_whole(pcm), SWEEP_REPS),
+            ENCODE_KERNELS if backend == "device" else ())
+        row[f"{backend} chunks"] = list(enc.filter_chunks)
+        row[f"{backend} encode stages"] = dict(enc.stage_times)
+        ((_, out), row[f"{backend} decode"]), _, got_d = runs.part(
+            f"{label} decode", lambda: best_of(lambda: dec.decode_whole(blob), SWEEP_REPS),
+            DECODE_KERNELS if backend == "device" else ())
+        row[f"{backend} decode stages"] = dict(dec.stage_times)
+        if backend == "host" and (got or got_d):
+            raise AssertionError(f"{label}: the host backend launched kernels {got} {got_d}")
+        if out.shape != pcm.shape or not np.array_equal(out, pcm):
+            raise AssertionError(f"{label}: the decoded PCM differs from the input")
+        row[f"{backend} launches"] = {k: got.get(k, 0) + got_d.get(k, 0)
+                                      for k in set(got) | set(got_d)}
+        blobs[backend] = blob
+    if blobs["device"] != blobs["host"]:
+        raise AssertionError(f"sweep {seconds} s: the device stream differs from the host's")
+    return row
+
+
+def crossover(rows: list[dict], what: str) -> tuple[int | None, int | None]:
+    """The 'auto' threshold the sweep gives for `what` ('encode' or
+    'decode'): the smallest swept row-sample count from which every larger
+    swept size runs no slower on the card, and the midpoint between it and
+    the next smaller size (0 below the first), rounded to 100,000; (None,
+    None) when the largest size is slower on the card."""
+    rows = sorted(rows, key=lambda r: r["row_samples"])
+    first = None
+    for i in reversed(range(len(rows))):
+        if rows[i][f"device {what}"] > rows[i][f"host {what}"]:
+            break
+        first = i
+    if first is None:
+        return None, None
+    below = rows[first - 1]["row_samples"] if first else 0
+    size = rows[first]["row_samples"]
+    return size, int(round((below + size) / 2, -5))
+
+
+def run_bench(runs: "Launches", label: str, need) -> tuple[dict, str, dict]:
+    """bench.main() in this process on the card: its last stdout line,
+    parsed, its stderr line and its launches."""
+    import contextlib
+    import io
+
+    from sla_tpu_torch import bench
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        _, _, got = runs.part(label, bench.main, need)
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    if list(res) != BENCH_KEYS or res["metric"] != bench.METRIC:
+        raise AssertionError(f"{label}: the last line is not bench.py's: {res}")
+    return res, err.getvalue().strip().splitlines()[-1], got
+
+
+def phase_threshold(env: dict) -> dict:
+    """The 'auto' device threshold measured on the card, then the
+    benchmark twin (sla_tpu_torch.bench): under 'auto' as it stands, forced
+    onto the card with SLA_TPU_DEVICE_THRESHOLD=0, and as
+    `python -m sla_tpu_torch.bench`."""
+    from sla_tpu_torch import pipeline
+
+    runs = Launches()
+    t0 = time.perf_counter()
+    rows = []
+    for seconds in SWEEP_SECONDS:
+        r = sweep_row(runs, seconds)
+        rows.append(r)
+        log("threshold", f"{env['card']} | {seconds} s, {r['row_samples']} row-samples (chunks "
+            + ", ".join(str(n) for n, _ in r["device chunks"])
+            + f"): encode host {r['host encode']:.4f} s, card {r['device encode']:.4f} s "
+            f"(host / card {r['host encode'] / r['device encode']:.3f}); decode host "
+            f"{r['host decode']:.4f} s, card {r['device decode']:.4f} s (host / card "
+            f"{r['host decode'] / r['device decode']:.3f}); device stream equal to the "
+            f"host's, both decodes exact; card launches {r['device launches']}")
+    last = rows[-1]
+
+    def stages(key):
+        return ", ".join(f"{k} {v * 1e3:.1f}" for k, v in last[key].items())
+
+    log("threshold", f"{last['seconds']} s, the last call's stage ms: encode host "
+        f"[{stages('host encode stages')}], card [{stages('device encode stages')}]; decode "
+        f"host [{stages('host decode stages')}], card [{stages('device decode stages')}]")
+    enc_size, enc_at = crossover(rows, "encode")
+    dec_size, dec_at = crossover(rows, "decode")
+
+    def rule(what, size, at):
+        if size is None:
+            return (f"no swept size from which every larger one {what}s no slower on the card "
+                    "(the rule gives no threshold)")
+        return f"the card {what}s no slower from {size} row-samples on (the rule gives {at})"
+
+    log("threshold", f"best of {SWEEP_REPS} after a warm call: "
+        f"{rule('encode', enc_size, enc_at)}; {rule('decode', dec_size, dec_at)}; "
+        f"pipeline.DEFAULT_DEVICE_THRESHOLD "
+        f"{pipeline.DEFAULT_DEVICE_THRESHOLD}; sweep {time.perf_counter() - t0:.1f} s")
+    # the twin under 'auto' as it stands, then forced onto the card
+    auto, auto_err, auto_got = run_bench(runs, "bench auto", ())
+    os.environ["SLA_TPU_DEVICE_THRESHOLD"] = "0"
+    try:
+        forced, forced_err, forced_got = run_bench(runs, "bench forced", CODEC)
+    finally:
+        del os.environ["SLA_TPU_DEVICE_THRESHOLD"]
+    log("threshold", f"bench auto (launches {auto_got}): {json.dumps(auto)} | {auto_err}")
+    log("threshold", f"bench SLA_TPU_DEVICE_THRESHOLD=0 (launches {forced_got}): "
+        f"{json.dumps(forced)} | {forced_err}")
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sla_tpu_torch.bench"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"python -m sla_tpu_torch.bench exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    if list(res) != BENCH_KEYS or res["metric"] != auto["metric"]:
+        raise AssertionError(f"python -m sla_tpu_torch.bench: not bench.py's last line: {res}")
+    log("threshold", f"python -m sla_tpu_torch.bench {time.perf_counter() - t1:.1f} s: "
+        f"{json.dumps(res)} | {proc.stderr.strip().splitlines()[-1]}")
+    log("threshold", f"phase 8 {time.perf_counter() - t0:.1f} s")
+    return runs.total
+
+
 def main() -> int:
     env = phase_environment()
     try:
@@ -1443,13 +1616,14 @@ def main() -> int:
         entry_launches = phase_entry_points(env, device_blob)
         mesh_launches = phase_mesh(env, device_blob)
         tools_launches = phase_tools(env)
+        threshold_launches = phase_threshold(env)
     finally:
         if env["sanitized_build"] is not None:
             stop(env["sanitized_build"])
     record = [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": KERNELS[name],
          "launches": slice_launches[name] + known_launches[name] + entry_launches[name]
-         + mesh_launches[name] + tools_launches[name],
+         + mesh_launches[name] + tools_launches[name] + threshold_launches[name],
          **timing[name]}
         for name in KERNELS
     ]

@@ -145,6 +145,9 @@ class Encoder:
         self._wave_format: WaveFormat | None = None
         self._encode_param: EncodeParameter | None = None
         self.stage_times: dict[str, float] = {}  # per-stage seconds, last encode
+        # (row-samples, backend) of each filter chunk of the last encode
+        # (encode_block, encode_whole, or encode_whole_batch's first encoder)
+        self.filter_chunks: list[tuple[int, str]] = []
 
     # -- parameter setting (SLAEncoder.c:176-224) ---------------------------
     def set_wave_format(self, wf: WaveFormat) -> None:
@@ -282,6 +285,7 @@ class Encoder:
         data = np.ascontiguousarray(data, dtype=np.int32)
         shift = 32 - wf.bit_per_sample + wf.offset_lshift
         plan = _BlockPlan(0, n)
+        self.filter_chunks = []
         int32_blk, _, dbl = self._convert_views(data, shift, shift)
         self._analyze_blocks(int32_blk, dbl, [plan])
         self._run_filters([plan])
@@ -297,6 +301,7 @@ class Encoder:
         never change a window or silent-run decision (planning carries the
         tail into the next segment), so the bytes are identical to the
         one-shot path. SLA_TPU_SEGMENT_SAMPLES tunes the threshold."""
+        self.filter_chunks = []
         seg = self._segment_samples()
         if data.shape[1] > seg:
             blob = self._encode_whole_segmented(
@@ -921,6 +926,7 @@ class Encoder:
             # (checkify cannot cross shard_map); assert mode runs the
             # checked single-device stages instead
             backend = "device"
+        self.filter_chunks.append((row_samples, backend))
         # the host path pads L to the stream's max block size; the device
         # and mesh stages take exact rows with L the chunk's longest block
         # (the kernels accept any (B, L))
@@ -1239,6 +1245,7 @@ def encode_whole_batch(
     # the batch bypasses _run_filters, which resets the mode per run; the
     # attach step sets it when K8 coded this batch's payloads
     encs[0]._device_entropy_active = False
+    encs[0].filter_chunks = []  # the batch's chunks, recorded on encs[0]
     encs[0]._run_filter_groups(groups)
     # the filter run (and a possible device-entropy attach) happened on
     # encs[0]; every job's finalize must observe the same mode so attached

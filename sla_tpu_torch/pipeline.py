@@ -38,8 +38,19 @@ from .kernels.lms import lms_init_state, lms_predict
 from .kernels.longterm import longterm_predict_q15
 from .params import longterm_params
 
-# row-samples below which 'auto' keeps the native host cascade
-# (sla_tpu/pipeline.py:683-687; not yet measured against the card)
+# row-samples below which 'auto' keeps the native host cascade: sla_tpu's
+# value (sla_tpu/pipeline.py:683-687), kept only because the card's sweep
+# gives no threshold; it is not a measured crossover. chip_smoke.py phase 8
+# (bench.make_signal at 5-300 s, backend 'host' against 'device', best of 3;
+# NVIDIA H100 80GB HBM3, 700.00 W power limit; four sweeps in three runs)
+# found the card's encode slower than the host's at 1.3M, 15.9M and 26.5M
+# row-samples in every sweep, faster at 0.44M and once each at 2.6M, 5.3M
+# and 10.6M, so no swept size has every larger one no slower on the card.
+# Around the value, at 15.9M and 26.5M, the card encoded that signal slower
+# (host / card 0.69-0.92), while in both final runs phase 3's music clip
+# at 26.5M encoded faster on the card (0.619 / 0.639 s, 1.015 / 1.150 s):
+# the choice rests on one synthetic signal. Decode was faster on the card from 1.3M
+# to 10.6M in every sweep and slower at 26.5M in three of four.
 DEFAULT_DEVICE_THRESHOLD = 16_000_000
 
 

@@ -6,15 +6,16 @@ the caller asks for the CPU.
   encode/decode round trip on the device, host and mesh backends (the
   mesh over two CPU shards, `sla_tpu_torch.parallel`), the known-parameter entry
   step, the entry points (the CLI with corpus mode and the streaming
-  decode, `encode_whole_batch`, `optimize_encode`, `python -m`, and the
-  modules `hostref`, `command_line` and `debug`), the device tools'
+  decode, `encode_whole_batch`, `optimize_encode`, `python -m`, the
+  benchmark twin `bench`, and the modules `hostref`, `command_line` and
+  `debug`), the device tools'
   checks and the robustness and measurement tools (`tools/fuzz_*`,
   `run_sanitized`, `profile_decode`, `measure_*`, `bench_synth_micro`,
   their generator `tools/signals`); no loaded module may come from
   `sla_tpu/`, by name or by file.
 - A copy of `sla_tpu_torch/` and `chip_smoke.py` alone in a temporary
   directory runs the round trip with `verify=True`, `entry()` and the
-  entry points on the CPU, and `python -m sla_tpu_torch -v` (the native
+  entry points (the benchmark twin among them) on the CPU, and `python -m sla_tpu_torch -v` (the native
   library it would build is taken from this checkout's build cache, so the
   test stays short).
 """
@@ -99,6 +100,10 @@ with contextlib.redirect_stdout(buf):
     except SystemExit as e:
         assert e.code == 0
 assert "Version" in buf.getvalue()
+
+# the benchmark twin (bench.py's), on a one-second signal
+from sla_tpu_torch import bench
+bench.main(device="cpu", seconds=1)
 """
 
 _TOOLS = r"""

@@ -331,3 +331,36 @@ def test_decode_range_and_salvage_under_forced_device_entropy(monkeypatch):
     _, segs = st.Decoder(device="cpu").decode_salvage(blob)
     assert len(segs) == 1 and segs[0].sample_offset == 0
     assert np.array_equal(segs[0].pcm, pcm)
+
+
+# -- K9's cursor limit against what a stream can ask for -------------------------
+
+
+def test_no_header_reaches_the_decode_symbol_limit():
+    """K9 refuses blocks of more than MAX_DECODE_SYMBOLS symbols (its 32-bit
+    cursor); a block is at most max_num_block_samples x channels, the
+    header stores the first in 16 bits and the decoder refuses more than
+    SLA_MAX_CHANNELS channels, so no stream reaches the limit."""
+    from sla_tpu_torch.constants import SLA_MAX_CHANNELS
+
+    assert 0xFFFF * SLA_MAX_CHANNELS <= cuda_entropy.MAX_DECODE_SYMBOLS
+    assert st.DecoderConfig().max_num_channels <= SLA_MAX_CHANNELS
+
+
+@pytest.mark.parametrize("n_max", [0xFFFF, 0x10000, 0x10000 + 12288, 1 << 20, (1 << 20) - 1])
+def test_header_block_size_never_round_trips_larger(n_max):
+    """A header written with max_num_block_samples over 0xFFFF keeps its low
+    16 bits (format.py's `& 0xFFFF`), as sla_tpu's does: the n_max the
+    decoder reads back is never larger than 0xFFFF."""
+    from sla_tpu import format as ref_format
+    from sla_tpu_torch import format as fmt
+
+    def header(mod, pkg):
+        ep = dataclasses.replace(pkg.PRESETS[2], max_num_block_samples=n_max)
+        return mod.HeaderInfo(pkg.WaveFormat(8, 16, 44100), ep, num_samples=1000, num_blocks=1)
+
+    blob = fmt.encode_header(header(fmt, st))
+    assert blob == ref_format.encode_header(header(ref_format, sla_tpu))
+    got, _ = fmt.decode_header(blob)
+    assert got.encode_param.max_num_block_samples == n_max & 0xFFFF <= 0xFFFF
+    assert got.encode_param.max_num_block_samples * 8 <= cuda_entropy.MAX_DECODE_SYMBOLS

@@ -81,3 +81,26 @@ def test_tools_phase_fuzz_counts():
     assert counts == {"fuzz_device_entropy": 100, "fuzz_corruption": 200, "fuzz_salvage": 50,
                       "fuzz_streaming": 50, "fuzz_streaming --seek": 20}
     assert smoke.SANITIZED[1][:3] == ["run_sanitized", "fuzz_corruption", "50"]
+
+
+@pytest.mark.parametrize("host,card,want", [
+    # the card no slower from the first size on: the midpoint to 0
+    ((1.0, 2.0, 4.0), (0.9, 1.5, 3.0), (1_000_000, 500_000)),
+    # the host faster at the smallest size only
+    ((1.0, 2.0, 4.0), (1.1, 1.5, 3.0), (2_000_000, 1_500_000)),
+    # a slower size above a faster one: the rule starts above it
+    ((1.0, 2.0, 4.0), (0.9, 2.1, 3.0), (4_000_000, 3_000_000)),
+    # equal counts as no slower
+    ((1.0, 2.0, 4.0), (1.1, 2.0, 4.0), (2_000_000, 1_500_000)),
+    # the largest size slower on the card: no threshold from the sweep
+    ((1.0, 2.0, 4.0), (0.9, 1.5, 4.1), (None, None)),
+])
+def test_threshold_rule_from_the_sweep(host, card, want):
+    """Phase 8's rule for the 'auto' threshold: the smallest swept size from
+    which every larger size runs no slower on the card, written as the
+    midpoint to the next smaller size, rounded to 100,000 row-samples."""
+    smoke = _chip_smoke()
+    sizes = (1_000_000, 2_000_000, 4_000_000)
+    rows = [{"row_samples": n, "host encode": h, "device encode": c}
+            for n, h, c in zip(sizes, host, card)]
+    assert smoke.crossover(rows[::-1], "encode") == want
